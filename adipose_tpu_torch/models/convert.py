@@ -1,0 +1,92 @@
+"""Carry U-Net weights between the Flax param tree and a torch state dict.
+
+The Flax tree (``{"params": {"_ConvBlock_0": {"down1_conv1": {"kernel":
+(3, 3, Cin, Cout), "bias": (Cout,)}}, ..., "output_softmax": {...}}}``) is
+held as numpy arrays, so neither direction needs JAX. Kernels map
+HWIO <-> OIHW; layer names are kept. Both directions are lossless.
+
+On disk the tree is one ``.npz`` whose keys are the tree paths joined by
+``/``; ``scripts/export_flax_params_npz.py`` writes it from an orbax
+checkpoint of the JAX package.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# Flax scopes of the encoder blocks (``_ConvBlock`` modules); every other
+# layer sits at the top of the tree.
+_BLOCK_SCOPES = {
+    "down1_conv1": "_ConvBlock_0", "down1_conv2": "_ConvBlock_0",
+    "down2_conv1": "_ConvBlock_1", "down2_conv2": "_ConvBlock_1",
+    "down3_conv1": "_ConvBlock_2", "down3_conv2": "_ConvBlock_2",
+}
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def _unflatten(flat: dict[tuple, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def flax_unet_to_torch(params: dict) -> dict[str, torch.Tensor]:
+    """Flax U-Net params (with or without the top ``"params"`` level) ->
+    a :class:`~adipose_tpu_torch.models.unet.DilatedUNet` state dict."""
+    state = {}
+    for path, arr in _flatten(params).items():
+        layer, leaf = path[-2], path[-1]
+        a = np.asarray(arr, dtype=np.float32)
+        if leaf == "kernel":
+            state[f"{layer}.weight"] = torch.from_numpy(np.array(a.transpose(3, 2, 0, 1), order="C"))
+        elif leaf == "bias":
+            state[f"{layer}.bias"] = torch.from_numpy(np.array(a))
+        else:
+            raise ValueError(f"unexpected U-Net param {'/'.join(path)}")
+    return state
+
+
+def torch_unet_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flax_unet_to_torch`: the JAX module's full
+    variables tree ``{"params": ...}`` as numpy."""
+    flat = {}
+    for key, t in state_dict.items():
+        layer, leaf = key.rsplit(".", 1)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        scope = ("params",) + ((_BLOCK_SCOPES[layer],) if layer in _BLOCK_SCOPES else ())
+        if leaf == "weight":
+            flat[scope + (layer, "kernel")] = np.array(a.transpose(2, 3, 1, 0), order="C")
+        elif leaf == "bias":
+            flat[scope + (layer, "bias")] = np.array(a)
+        else:
+            raise ValueError(f"unexpected U-Net state dict key {key}")
+    return _unflatten(flat)
+
+
+def save_flax_npz(tree: dict, path: str | Path) -> Path:
+    """Write a param tree as one ``.npz`` with ``/``-joined keys."""
+    path = Path(path)
+    np.savez(path, **{"/".join(k): np.asarray(v) for k, v in _flatten(tree).items()})
+    return path
+
+
+def load_flax_npz(path: str | Path) -> dict:
+    """Read a param tree written by :func:`save_flax_npz`."""
+    with np.load(path) as z:
+        return _unflatten({tuple(k.split("/")): z[k] for k in z.files})

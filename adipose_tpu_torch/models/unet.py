@@ -1,0 +1,204 @@
+"""Dilated-bottleneck U-Net (``adipose_tpu/models/unet.py``) in PyTorch.
+
+Architecture (the JAX module's docstring has the reference lines):
+
+  encoder    3 levels of [Conv3x3-ReLU x2 -> MaxPool2] at init_nb*(1,2,4)
+  bottleneck six Conv3x3-ReLU at init_nb*8, dilation 1..32, fed in sequence
+             with dropout after the first, all six summed
+  decoder    3 levels of [nearest-x2 upsample -> Conv3x3 -> skip concat ->
+             Conv3x3 x2 -> dropout]
+  head       Conv1x1 -> 2-way softmax -> class 1, computed as
+             sigmoid(l1 - l0) by the CUDA head kernel (``fast_head``)
+  aux heads  (optional) Conv1x1-sigmoid at up3 and up2, bilinearly resized
+
+Layout and casts follow the JAX module: params stay float32 and are cast to
+the compute dtype at use; activations are NCHW tensors in
+``torch.channels_last`` memory, so the convs run channels-last in cuDNN and
+the head kernel reads each pixel's channels contiguously. The input is cast
+to the compute dtype before the first conv, biases are added in the compute
+dtype, the bottleneck taps are summed in order in the compute dtype, and the
+heads accumulate in float32. The TPU's lane padding (``lane_pad``) is not
+carried: it is bit-exact there and this is the same unpadded function.
+
+Layer names are the Keras names the JAX module keeps, so
+:mod:`adipose_tpu_torch.models.convert` maps Flax params one to one.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from adipose_tpu_torch.ops.cuda.unet_kernels import diff_sigmoid_head
+
+_CL = torch.channels_last
+# Flax's lecun_normal: truncated normal on [-2, 2] std, rescaled so the
+# truncated distribution's std is sqrt(1 / fan_in).
+_TRUNC_STD = 0.87962566103423978
+
+
+class Conv(nn.Module):
+    """A Keras-named conv layer: float32 OIHW weight and bias, applied in the
+    input's dtype with "SAME" padding."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, dilation: int = 1,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin, kernel_size, kernel_size, device=device))
+        self.bias = nn.Parameter(torch.empty(cout, device=device))
+        self.dilation = dilation
+        self.padding = dilation * (kernel_size // 2)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """lecun_normal weight and zero bias, as Flax initializes ``nn.Conv``."""
+        fan_in = self.weight[0].numel()
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype, memory_format=_CL)
+        return F.conv2d(x, w, self.bias.to(x.dtype), padding=self.padding,
+                        dilation=self.dilation)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Keras ``UpSampling2D`` default (nearest x2)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
+    """``tf.image.resize(..., 'bilinear')``: half-pixel centers, no corner
+    alignment."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
+
+
+class FusedUpsampleConv(Conv):
+    """Nearest-x2 upsample followed by a 3x3 conv. The JAX module computes it
+    as one stride-2 transposed 4x4 conv; the two are the same function, and
+    the params are a plain 3x3 conv's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(upsample_nearest_2x(x))
+
+
+def sigmoid_head(conv: Conv, x: torch.Tensor) -> torch.Tensor:
+    """Conv1x1(1 channel) -> sigmoid as a channel contraction (the JAX
+    ``SigmoidHead1x1``), through the head kernel. (B, H, W) float32."""
+    return diff_sigmoid_head(x, conv.weight[0, :, 0, 0].to(x.dtype), conv.bias[0])
+
+
+def diff_head_taps(conv: Conv, dtype: torch.dtype):
+    """Taps and bias of ``softmax(conv1x1(x))[:, 1] == sigmoid(<x, w> + b)``:
+    the difference of the two classes' 1x1 kernels and biases."""
+    w = conv.weight[:, :, 0, 0]
+    return (w[1] - w[0]).to(dtype), conv.bias[1] - conv.bias[0]
+
+
+class DilatedUNet(nn.Module):
+    """Dilated-bottleneck U-Net; input (B, H, W) or (B, 1, H, W), output
+    (B, H, W) float32 class-1 probability, or a dict ``main_out``,
+    ``aux_out1``, ``aux_out2`` with deep supervision.
+
+    Params are allocated uninitialized: call :meth:`init_params` or load a
+    state dict.
+    """
+
+    def __init__(self, init_nb: int = 44, dropout_rate: float = 0.3,
+                 use_deep_supervision: bool = False,
+                 dilation_rates: tuple = (1, 2, 4, 8, 16, 32),
+                 compute_dtype: torch.dtype = torch.bfloat16, fast_head: bool = True,
+                 device=None):
+        super().__init__()
+        nb = init_nb
+        self.dropout_rate = dropout_rate
+        self.use_deep_supervision = use_deep_supervision
+        self.compute_dtype = compute_dtype
+        self.fast_head = fast_head
+        self.dilation_rates = tuple(dilation_rates)
+
+        def conv(name, cin, cout, k=3, dilation=1, cls=Conv):
+            setattr(self, name, cls(cin, cout, k, dilation, device=device))
+
+        conv("down1_conv1", 1, nb)
+        conv("down1_conv2", nb, nb)
+        conv("down2_conv1", nb, 2 * nb)
+        conv("down2_conv2", 2 * nb, 2 * nb)
+        conv("down3_conv1", 2 * nb, 4 * nb)
+        conv("down3_conv2", 4 * nb, 4 * nb)
+        for i, rate in enumerate(self.dilation_rates):
+            conv(f"dilate{i + 1}", 4 * nb if i == 0 else 8 * nb, 8 * nb, dilation=rate)
+        for level, feat, below in ((3, 4 * nb, 8 * nb), (2, 2 * nb, 4 * nb), (1, nb, 2 * nb)):
+            conv(f"up{level}_conv1", below, feat, cls=FusedUpsampleConv)
+            conv(f"up{level}_conv2", 2 * feat, feat)
+            conv(f"up{level}_conv3", feat, feat)
+        conv("output_softmax", nb, 2, k=1)
+        if use_deep_supervision:
+            conv("aux_out1", 4 * nb, 1, k=1)
+            conv("aux_out2", 2 * nb, 1, k=1)
+
+    def init_params(self, generator: torch.Generator) -> "DilatedUNet":
+        """Flax's initialization (lecun_normal kernels, zero biases), drawn
+        from ``generator`` in layer order."""
+        for m in self.modules():
+            if isinstance(m, Conv):
+                m.reset_parameters(generator)
+        return self
+
+    def _dropout(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.dropout_rate, self.training)
+
+    def _up_stage(self, level: int, skip: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        y = F.relu(getattr(self, f"up{level}_conv1")(y))
+        y = torch.cat([skip, y], dim=1)
+        y = F.relu(getattr(self, f"up{level}_conv2")(y))
+        y = F.relu(getattr(self, f"up{level}_conv3")(y))
+        return self._dropout(y)
+
+    def trunk(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Everything but the heads: the decoder outputs (up1, up2, up3) in
+        the compute dtype, channels-last."""
+        if x.dim() == 3:
+            x = x.unsqueeze(1)
+        x = x.to(self.compute_dtype).contiguous(memory_format=_CL)
+        down1 = F.relu(self.down1_conv2(F.relu(self.down1_conv1(x))))
+        down2 = F.relu(self.down2_conv2(F.relu(self.down2_conv1(F.max_pool2d(down1, 2)))))
+        down3 = F.relu(self.down3_conv2(F.relu(self.down3_conv1(F.max_pool2d(down2, 2)))))
+        d = F.max_pool2d(down3, 2)
+        taps = []
+        for i in range(len(self.dilation_rates)):
+            d = F.relu(getattr(self, f"dilate{i + 1}")(d))
+            if i == 0:
+                d = self._dropout(d)
+            taps.append(d)
+        bottleneck = sum(taps)
+        up3 = self._up_stage(3, down3, bottleneck)
+        up2 = self._up_stage(2, down2, up3)
+        up1 = self._up_stage(1, down1, up2)
+        return up1, up2, up3
+
+    def forward(self, x: torch.Tensor):
+        h, w = x.shape[-2:]
+        up1, up2, up3 = self.trunk(x)
+        if self.fast_head:
+            main = diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1.dtype))
+        else:
+            logits = self.output_softmax(up1)
+            main = torch.softmax(logits.to(torch.float32), dim=1)[:, 1]
+        if not self.use_deep_supervision:
+            return main
+        if self.fast_head:
+            aux1 = sigmoid_head(self.aux_out1, up3)
+            aux2 = sigmoid_head(self.aux_out2, up2)
+        else:
+            aux1 = torch.sigmoid(self.aux_out1(up3).to(torch.float32))[:, 0]
+            aux2 = torch.sigmoid(self.aux_out2(up2).to(torch.float32))[:, 0]
+        aux1 = resize_bilinear(aux1[:, None], (h, w))[:, 0]
+        aux2 = resize_bilinear(aux2[:, None], (h, w))[:, 0]
+        return {"main_out": main, "aux_out1": aux1, "aux_out2": aux2}

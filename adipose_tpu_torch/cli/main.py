@@ -1,13 +1,15 @@
 """``adipose-torch``: the port's command line.
 
-``adipose-torch segment`` is ``adipose segment`` (``adipose_tpu/cli/main.py``)
-on a torch device, with the same flags plus ``--device``. It reads
-``params.npz`` weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
+``adipose-torch segment`` and ``adipose-torch pipeline`` are ``adipose
+segment`` and ``adipose pipeline`` (``adipose_tpu/cli/main.py``) on a torch
+device, with the same flags plus ``--device``. They read ``params.npz``
+weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from pathlib import Path
 
@@ -15,11 +17,13 @@ import numpy as np
 import torch
 
 from adipose_tpu_torch.core.hostio import thread_map
-from adipose_tpu_torch.models.convert import flax_unet_to_torch
+from adipose_tpu_torch.models.convert import flax_inception_to_torch, flax_unet_to_torch
+from adipose_tpu_torch.models.inception import InceptionV3Classifier
 from adipose_tpu_torch.models.unet import DilatedUNet
 from adipose_tpu_torch.ops.cuda.preprocess import fused_zscore_normalize
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.state import make_unet_predict
+from adipose_tpu_torch.train.trainer_classifier import _make_val_step
 
 OVERLAY_RGB = {"cyan": (0, 255, 255), "yellow": (255, 255, 0),
                "magenta": (255, 0, 255), "green": (0, 255, 0), "red": (255, 0, 0)}
@@ -47,6 +51,27 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default="cuda",
                    help="torch device; on 'cpu' the kernels' plain versions run")
     s.set_defaults(func=cmd_segment)
+
+    pl = sub.add_parser("pipeline", help="end-to-end dual-model WSI pipeline")
+    pl.add_argument("--wsi", default=None, help="a single WSI/chunk image")
+    pl.add_argument("--wsi-dir", default=None,
+                    help="directory of WSI chunks; chunks stream through a 1-deep "
+                         "pipelined loop: chunk k+1 computes while chunk k's map "
+                         "is copied and written")
+    pl.add_argument("--classifier-weights", required=True)
+    pl.add_argument("--segmenter-weights", required=True)
+    pl.add_argument("--output-dir", required=True)
+    pl.add_argument("--tile-size", type=int, default=1024)
+    pl.add_argument("--classifier-threshold", type=float, default=0.5)
+    pl.add_argument("--threshold", type=float, default=0.5)
+    pl.add_argument("--batch-size", type=int, default=16)
+    pl.add_argument("--transfer-dtype", choices=["uint8", "float16", "float32"],
+                    default="float16",
+                    help="final probability-map copy precision (uint8 copies the "
+                         "exact PNG payload: smallest copy, 1/255-step probabilities)")
+    pl.add_argument("--device", default="cuda",
+                    help="torch device; on 'cpu' the kernels' plain versions run")
+    pl.set_defaults(func=cmd_pipeline)
     return parser
 
 
@@ -74,6 +99,18 @@ def _load_segmenter(weights, use_ema: bool = False, device="cuda"):
         return base(p, x)
 
     return predict, params, mean, std
+
+
+def _load_classifier(weights, device="cuda"):
+    """``(predict, state)`` for a classifier checkpoint dir:
+    ``predict(state, tiles)`` percentile-stretches (B, H, W) uint8/float32
+    tiles on ``device``, resizes them to 299^2 and runs the bf16
+    InceptionV3; it returns (B,) float32 probabilities."""
+    variables = ckpt.load_params(ckpt.resolve_weights_path(weights))
+    state = {k: v.to(device) for k, v in flax_inception_to_torch(variables).items()}
+    # predict() runs on the state it is given
+    model = InceptionV3Classifier(compute_dtype=torch.bfloat16, device="meta")
+    return _make_val_step(model, True, 1.0, 99.0), state
 
 
 def segment_batch(predict, params, batch: np.ndarray, batch_size: int, device) -> np.ndarray:
@@ -135,6 +172,41 @@ def cmd_segment(args) -> None:
         dt = time.time() - t0
         thread_map(write_outputs, list(zip(chunk, batch, preds)))
         print(f"[{i + len(chunk)}/{len(files)}] {dt / len(chunk):.3f}s/img")
+
+
+def cmd_pipeline(args) -> None:
+    from adipose_tpu_torch.wsi.pipeline import DualModelWSIPipeline
+
+    seg_predict, seg_params, _, _ = _load_segmenter(args.segmenter_weights,
+                                                    device=args.device)
+    cls_predict, cls_state = _load_classifier(args.classifier_weights, device=args.device)
+    pipe = DualModelWSIPipeline(
+        cls_predict, cls_state, seg_predict, seg_params,
+        tile_size=args.tile_size,
+        classifier_threshold=args.classifier_threshold,
+        batch_size=args.batch_size,
+        transfer_dtype=args.transfer_dtype,
+        device=args.device,
+    )
+    if args.wsi_dir:
+        exts = (".tif", ".tiff", ".png", ".jpg", ".jpeg")
+        paths = sorted(p for p in Path(args.wsi_dir).iterdir()
+                       if p.suffix.lower() in exts and p.is_file())
+        if not paths:
+            raise SystemExit(f"no chunk images in {args.wsi_dir}")
+        summaries = pipe.run_files(paths, args.output_dir, args.threshold)
+        print(json.dumps({
+            "n_chunks": len(summaries),
+            "n_tiles": sum(s["n_tiles"] for s in summaries),
+            "n_positive": sum(s["n_positive"] for s in summaries),
+        }, indent=2))
+    elif args.wsi:
+        result = pipe.run_file(args.wsi, args.output_dir, args.threshold)
+        print(json.dumps({"n_tiles": result.n_tiles, "n_good": result.n_good,
+                          "n_positive": result.n_positive,
+                          "timings": result.timings}, indent=2))
+    else:
+        raise SystemExit("pipeline requires --wsi or --wsi-dir")
 
 
 def main(argv: list[str] | None = None) -> None:

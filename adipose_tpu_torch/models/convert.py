@@ -1,9 +1,13 @@
-"""Carry U-Net weights between the Flax param tree and a torch state dict.
+"""Carry weights between Flax variable trees and torch state dicts.
 
-The Flax tree (``{"params": {"_ConvBlock_0": {"down1_conv1": {"kernel":
-(3, 3, Cin, Cout), "bias": (Cout,)}}, ..., "output_softmax": {...}}}``) is
-held as numpy arrays, so neither direction needs JAX. Kernels map
-HWIO <-> OIHW; layer names are kept. Both directions are lossless.
+The U-Net tree (``{"params": {"_ConvBlock_0": {"down1_conv1": {"kernel":
+(3, 3, Cin, Cout), "bias": (Cout,)}}, ..., "output_softmax": {...}}}``) and
+the InceptionV3 classifier's (``{"params": {"backbone": {"cbn_<i>":
+{"conv": {"kernel"}, "bn": {"bias"}}}, "adipose_score": {...}},
+"batch_stats": {"backbone": {"cbn_<i>": {"bn": {"mean", "var"}}}}}``) are
+held as numpy arrays, so neither direction needs JAX. Conv kernels map
+HWIO <-> OIHW, Dense kernels (in, out) <-> (out, in); names are kept. Both
+directions are lossless.
 
 On disk the tree is one ``.npz`` whose keys are the tree paths joined by
 ``/``; ``scripts/export_flax_params_npz.py`` writes it from an orbax
@@ -76,6 +80,39 @@ def torch_unet_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
             flat[scope + (layer, "bias")] = np.array(a)
         else:
             raise ValueError(f"unexpected U-Net state dict key {key}")
+    return _unflatten(flat)
+
+
+def flax_inception_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax classifier variables ``{"params", "batch_stats"}`` -> an
+    :class:`~adipose_tpu_torch.models.inception.InceptionV3Classifier`
+    state dict (``backbone.cbn_<i>.conv.weight``, ``...bn.{bias,mean,var}``,
+    ``adipose_score.{weight,bias}``)."""
+    state = {}
+    for path, arr in _flatten(variables).items():
+        if path[0] not in ("params", "batch_stats"):
+            raise ValueError(f"unexpected classifier variable {'/'.join(path)}")
+        a = np.asarray(arr, dtype=np.float32)
+        *scope, leaf = path[1:]
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            leaf = "weight"
+        state[".".join([*scope, leaf])] = torch.from_numpy(np.array(a, order="C"))
+    return state
+
+
+def torch_inception_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flax_inception_to_torch`: the JAX module's
+    variables ``{"params", "batch_stats"}`` as numpy."""
+    flat = {}
+    for key, t in state_dict.items():
+        *scope, leaf = key.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            leaf = "kernel"
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        flat[(collection, *scope, leaf)] = np.array(a, order="C")
     return _unflatten(flat)
 
 

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-All ``csrc/*.cu`` sources compile into one shared library with a plain C
-interface, ``build/kernels/libadipose_tpu_torch.so`` under the repository
-root. It is built on first use and rebuilt when the hash of the sources or
-the flags changes. Nothing here runs at import: the package imports on a
-machine with no ``nvcc`` and no GPU.
+Each ``csrc/*.cu`` source compiles to an object file in its own ``nvcc``
+process, all started together; the objects link into one shared library
+with a plain C interface, ``build/kernels/libadipose_tpu_torch.so`` under
+the repository root. It is built on first use and rebuilt when the hash of
+the sources or the flags changes. Nothing here runs at import: the package
+imports on a machine with no ``nvcc`` and no GPU.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "adipose_zscore": (_I, _P, _I, _P, _I, _P, _P, _I, _LL, _F, _F, _F, _P),
     # device, x, x_bf16, w, bias, out, npix, channels, stream
     "adipose_sigmoid_head": (_I, _P, _I, _P, _P, _P, _LL, _I, _P),
+    # device, x, in_u8, hist, low_scale, out, batch, n, rank_lo, frac_lo,
+    # rank_hi, frac_hi, stream
+    "adipose_percentile": (_I, _P, _I, _P, _P, _P, _I, _LL, _F, _F, _F, _F, _P),
 }
 
 
@@ -69,13 +73,26 @@ def build() -> Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-8000:]}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f".{src.stem}.{pid}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{src.name} (code {p.returncode}):\n{log[-8000:]}"
+              for src, p, log in zip(_sources(), procs, logs) if p.returncode != 0]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{pid}"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link (code {link.returncode}):\n{link.stderr[-8000:]}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib

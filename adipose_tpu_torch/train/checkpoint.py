@@ -78,7 +78,8 @@ def save_params(ckpt_dir: str | Path, name: str, tree: dict) -> Path:
 
 
 def load_params(path: str | Path) -> dict:
-    """The Flax param tree (numpy) of a weights directory."""
+    """The Flax variable tree (numpy) of a weights directory: ``{"params"}``
+    for a U-Net run, ``{"params", "batch_stats"}`` for a classifier run."""
     npz = Path(path) / PARAMS_NPZ
     if not npz.exists():
         raise FileNotFoundError(

@@ -1,14 +1,16 @@
 """``adipose-torch``: the port's command line.
 
-``adipose-torch segment`` and ``adipose-torch pipeline`` are ``adipose
-segment`` and ``adipose pipeline`` (``adipose_tpu/cli/main.py``) on a torch
-device, with the same flags plus ``--device``. They read ``params.npz``
-weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
+``adipose-torch segment``, ``adipose-torch pipeline`` and ``adipose-torch
+train-unet`` are ``adipose segment``, ``adipose pipeline`` and ``adipose
+train-unet`` (``adipose_tpu/cli/main.py``) on a torch device, with the same
+flags plus ``--device``. They read and write ``params.npz`` weights (see
+:mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -72,7 +74,81 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--device", default="cuda",
                     help="torch device; on 'cpu' the kernels' plain versions run")
     pl.set_defaults(func=cmd_pipeline)
+    _add_train_unet(sub)
     return parser
+
+
+def _add_train_unet(sub) -> None:
+    """``train-unet``: every flag name and default of ``adipose train-unet``
+    plus ``--device``."""
+    t = sub.add_parser("train-unet", help="two-phase U-Net fine-tuning")
+    t.add_argument("--data-root", required=True)
+    t.add_argument("--pretrained-weights", default=None,
+                   help="by-name weight transfer before phase 1 from a run or weights dir "
+                        "holding params.npz (a TF .h5 is not ported yet)")
+    t.add_argument("--epochs-phase1", type=int, default=75)
+    t.add_argument("--epochs-phase2", type=int, default=150)
+    t.add_argument("--batch-size", type=int, default=2)
+    t.add_argument("--use-deep-supervision", dest="use_deep_supervision",
+                   action="store_true", default=True)
+    t.add_argument("--no-deep-supervision", dest="use_deep_supervision",
+                   action="store_false")
+    t.add_argument("--use-hard-example-mining", "--use-hard-mining",
+                   dest="use_hard_mining", action="store_true", default=True)
+    t.add_argument("--no-hard-mining", dest="use_hard_mining", action="store_false")
+    t.add_argument("--ohem-ratio", "--hard-example-ratio", dest="ohem_ratio",
+                   type=float, default=0.7)
+    t.add_argument("--use-label-smoothing", "--label-smoothing",
+                   dest="use_label_smoothing", action="store_true", default=False)
+    t.add_argument("--no-label-smoothing", dest="use_label_smoothing", action="store_false")
+    t.add_argument("--epsilon-pos", "--label-smooth-epsilon-pos", dest="epsilon_pos",
+                   type=float, default=0.03)
+    t.add_argument("--epsilon-neg", "--label-smooth-epsilon-neg", dest="epsilon_neg",
+                   type=float, default=0.07)
+    t.add_argument("--use-ema", dest="use_ema", action="store_true", default=True,
+                   help="EMA weights (the reference always tracks them, :410-505)")
+    t.add_argument("--no-ema", dest="use_ema", action="store_false")
+    t.add_argument("--ema-decay", type=float, default=0.995)
+    t.add_argument("--use-adamw", action="store_true")
+    t.add_argument("--optimizer", choices=["adam", "adamw"], default=None,
+                   help="reference name (overrides --use-adamw)")
+    t.add_argument("--weight-decay", type=float, default=0.01)
+    t.add_argument("--use-cosine-schedule", dest="use_cosine_schedule",
+                   action="store_true", default=True)
+    t.add_argument("--no-cosine-schedule", dest="use_cosine_schedule", action="store_false")
+    t.add_argument("--warmup-epochs", "--warmup-epochs-phase1", dest="warmup_epochs",
+                   type=int, default=5)
+    t.add_argument("--warmup-epochs-phase2", type=int, default=3)
+    t.add_argument("--ds-weight-main", type=float, default=1.0)
+    t.add_argument("--ds-weight-aux1", type=float, default=0.4)
+    t.add_argument("--ds-weight-aux2", type=float, default=0.3)
+    t.add_argument("--augment-level", "--augmentation-level", dest="augment_level",
+                   choices=["none", "light", "moderate", "heavy", "tta_style", "tta-style"],
+                   default="moderate")
+    t.add_argument("--normalization-method", choices=["zscore", "percentile"],
+                   default="percentile")
+    t.add_argument("--percentile-low", type=float, default=1.0)
+    t.add_argument("--percentile-high", type=float, default=99.0)
+    t.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run (train_unet_trace.json)")
+    t.add_argument("--resume-from", default=None)
+    t.add_argument("--auto-resume", action="store_true",
+                   help="resume mid-phase from the run dir's latest epoch state (pair with "
+                        "--run-timestamp so the restarted process finds the same dir)")
+    t.add_argument("--run-timestamp", default=None,
+                   help="pin the checkpoint dir timestamp (default: now)")
+    t.add_argument("--checkpoint-name", default="adipose_sybreosin")
+    t.add_argument("--checkpoint-suffix", default="",
+                   help="appended to the run directory name (:1524)")
+    t.add_argument("--checkpoint-root", default="checkpoints/segmentation")
+    t.add_argument("--cache-limit-mb", type=int, default=4096,
+                   help="RAM tile-cache budget per dataset (0 disables)")
+    t.add_argument("--num-devices", type=int, default=0,
+                   help="more than one device is not ported yet")
+    t.add_argument("--shard-spatial", action="store_true", help="(not ported yet)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device; on 'cpu' the kernels' plain versions run")
+    t.set_defaults(func=cmd_train_unet)
 
 
 def _load_segmenter(weights, use_ema: bool = False, device="cuda"):
@@ -207,6 +283,64 @@ def cmd_pipeline(args) -> None:
                           "timings": result.timings}, indent=2))
     else:
         raise SystemExit("pipeline requires --wsi or --wsi-dir")
+
+
+def cmd_train_unet(args) -> dict:
+    from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
+    from adipose_tpu_torch.data.tiling import find_most_recent_build_dir
+    from adipose_tpu_torch.train.trainer_unet import UNetTrainer
+
+    data_root = Path(args.data_root)
+    if not (data_root / "dataset").exists():
+        data_root = find_most_recent_build_dir(data_root)
+    cfg = TrainConfig(
+        batch_size=args.batch_size,
+        epochs_phase1=args.epochs_phase1, epochs_phase2=args.epochs_phase2,
+        optimizer=args.optimizer or ("adamw" if args.use_adamw else "adam"),
+        weight_decay=args.weight_decay,
+        use_hard_mining=args.use_hard_mining, ohem_ratio=args.ohem_ratio,
+        use_label_smoothing=args.use_label_smoothing,
+        epsilon_pos=args.epsilon_pos, epsilon_neg=args.epsilon_neg,
+        ds_weight_main=args.ds_weight_main, ds_weight_aux1=args.ds_weight_aux1,
+        ds_weight_aux2=args.ds_weight_aux2,
+        use_ema=args.use_ema, ema_decay_phase2=args.ema_decay,
+        use_cosine_schedule=args.use_cosine_schedule,
+        warmup_epochs=args.warmup_epochs, warmup_epochs_phase2=args.warmup_epochs_phase2,
+        augment_level=args.augment_level.replace("-", "_"),
+        normalization_method=args.normalization_method,
+        percentile_low=args.percentile_low, percentile_high=args.percentile_high,
+        num_devices=args.num_devices, shard_spatial=args.shard_spatial,
+        cache_limit_mb=args.cache_limit_mb,
+    )
+    trainer = UNetTrainer(data_root, cfg, UNetConfig(use_deep_supervision=args.use_deep_supervision),
+                          checkpoint_name=args.checkpoint_name + args.checkpoint_suffix,
+                          checkpoint_root=args.checkpoint_root,
+                          build_timestamp=args.run_timestamp, auto_resume=args.auto_resume,
+                          device=args.device)
+    with _profiled(args.profile_dir, "train_unet_trace.json"):
+        result = trainer.train(resume_from=args.resume_from,
+                               pretrained_weights=args.pretrained_weights)
+    print(json.dumps(result, indent=2))
+    return result
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str | None, name: str):
+    """A torch.profiler trace of the block written to ``profile_dir/name``
+    (host and, where there is a card, device activities); nothing without
+    a directory."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(profile_dir) / name))
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -1,9 +1,8 @@
-"""The U-Net's architecture config, framework-free.
+"""Dataclass configs, framework-free: copies of ``UNetConfig`` and
+``TrainConfig`` from ``adipose_tpu/core/config.py``.
 
-A copy of ``adipose_tpu/core/config.py`` ``UNetConfig`` with the fields a
-checkpoint's ``training_settings.log`` records; the compute, remat, lane
-padding and head knobs are chosen by the caller. ``from_json`` ignores keys
-it does not know, so a config written by the JAX package loads here.
+``from_json`` ignores keys it does not know, so a config written by the JAX
+package loads here.
 """
 
 from __future__ import annotations
@@ -39,3 +38,56 @@ class UNetConfig(_JsonMixin):
     dropout_rate: float = 0.3
     use_deep_supervision: bool = False
     dilation_rates: tuple = (1, 2, 4, 8, 16, 32)
+    compute_dtype: str = "bfloat16"  # params stay float32
+    # Rematerialization of every stage / of the level-1 stages: the JAX
+    # package's knobs; the port's trainer raises "not ported yet" on either.
+    remat: bool = False
+    remat_level1: bool = False
+    # The sigmoid(logit difference) head through the head kernel and its
+    # backward. Off for training as in the JAX package; inference paths
+    # build the model directly with it on.
+    fast_head: bool = False
+
+
+@dataclass
+class TrainConfig(_JsonMixin):
+    """Two-phase fine-tuning envelope (``train_adipose_unet_v3.py:1316-1421``)."""
+
+    batch_size: int = 2
+    epochs_phase1: int = 50
+    epochs_phase2: int = 100
+    lr_phase1: float = 1e-4
+    lr_phase2: float = 1e-5
+    optimizer: str = "adam"  # 'adam' | 'adamw'
+    weight_decay: float = 0.01
+    # Loss selection (compile_model matrix, :780-879)
+    use_hard_mining: bool = False
+    ohem_ratio: float = 0.7
+    use_label_smoothing: bool = False
+    epsilon_pos: float = 0.03
+    epsilon_neg: float = 0.07
+    ds_weight_main: float = 1.0
+    ds_weight_aux1: float = 0.4
+    ds_weight_aux2: float = 0.3
+    # EMA (EMACallback :410-505)
+    use_ema: bool = False
+    ema_decay_phase1: float = 0.999
+    ema_decay_phase2: float = 0.995
+    # Schedule (CosineAnnealingWithWarmup :368-407)
+    use_cosine_schedule: bool = False
+    warmup_epochs: int = 5  # phase 1 (--warmup-epochs-phase1)
+    warmup_epochs_phase2: int = 3  # (--warmup-epochs-phase2)
+    min_lr: float = 1e-7
+    # Data
+    augment_level: str = "moderate"  # light|moderate|heavy|tta_style
+    normalization_method: str = "zscore"  # zscore | percentile
+    percentile_low: float = 1.0
+    percentile_high: float = 99.0
+    # RAM tile-cache budget per dataset, megabytes; 0 disables caching.
+    cache_limit_mb: int = 4096
+    # Early stopping
+    early_stopping_patience: int = 15
+    # Mesh: more than one device and spatial sharding are not ported yet.
+    num_devices: int = 0  # 0 = all available
+    shard_spatial: bool = False
+    seed: int = 865

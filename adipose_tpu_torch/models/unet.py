@@ -9,7 +9,14 @@ Architecture (the JAX module's docstring has the reference lines):
              Conv3x3 x2 -> dropout]
   head       Conv1x1 -> 2-way softmax -> class 1, computed as
              sigmoid(l1 - l0) by the CUDA head kernel (``fast_head``)
-  aux heads  (optional) Conv1x1-sigmoid at up3 and up2, bilinearly resized
+  aux heads  (optional) Conv1x1-sigmoid at up3 and up2, bilinearly resized;
+             through the head kernel too with ``fast_head``
+
+With ``fast_head`` the heads are differentiable through the head kernel's
+backward (:func:`~adipose_tpu_torch.ops.cuda.unet_kernels.diff_sigmoid_head`).
+Dropout is Flax's: in training it draws its keep-mask with ``torch.rand``
+from the ``generator`` passed to :meth:`DilatedUNet.forward` and scales the
+kept values by 1 / (1 - rate); it never reads the global RNG.
 
 Layout and casts follow the JAX module: params stay float32 and are cast to
 the compute dtype at use; activations are NCHW tensors in
@@ -117,6 +124,7 @@ class DilatedUNet(nn.Module):
                  device=None):
         super().__init__()
         nb = init_nb
+        self.init_nb = init_nb
         self.dropout_rate = dropout_rate
         self.use_deep_supervision = use_deep_supervision
         self.compute_dtype = compute_dtype
@@ -151,19 +159,33 @@ class DilatedUNet(nn.Module):
                 m.reset_parameters(generator)
         return self
 
-    def _dropout(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, self.dropout_rate, self.training)
+    def _dropout(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """Flax ``nn.Dropout``: keep where ``uniform < 1 - rate``, scaled by
+        1 / (1 - rate); the identity outside training or at rate 0."""
+        if not self.training or self.dropout_rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DilatedUNet in training mode needs a generator for dropout")
+        keep_prob = 1.0 - self.dropout_rate
+        b, c, h, w = x.shape
+        # drawn as (B, H, W, C) so the mask shares x's channels-last layout
+        u = torch.rand((b, h, w, c), generator=generator, device=x.device).permute(0, 3, 1, 2)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                                     device=x.device))
 
-    def _up_stage(self, level: int, skip: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _up_stage(self, level: int, skip: torch.Tensor, y: torch.Tensor,
+                  generator: torch.Generator | None) -> torch.Tensor:
         y = F.relu(getattr(self, f"up{level}_conv1")(y))
         y = torch.cat([skip, y], dim=1)
         y = F.relu(getattr(self, f"up{level}_conv2")(y))
         y = F.relu(getattr(self, f"up{level}_conv3")(y))
-        return self._dropout(y)
+        return self._dropout(y, generator)
 
-    def trunk(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def trunk(self, x: torch.Tensor, generator: torch.Generator | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Everything but the heads: the decoder outputs (up1, up2, up3) in
-        the compute dtype, channels-last."""
+        the compute dtype, channels-last. ``generator`` draws the dropout
+        masks in training mode."""
         if x.dim() == 3:
             x = x.unsqueeze(1)
         x = x.to(self.compute_dtype).contiguous(memory_format=_CL)
@@ -175,17 +197,17 @@ class DilatedUNet(nn.Module):
         for i in range(len(self.dilation_rates)):
             d = F.relu(getattr(self, f"dilate{i + 1}")(d))
             if i == 0:
-                d = self._dropout(d)
+                d = self._dropout(d, generator)
             taps.append(d)
         bottleneck = sum(taps)
-        up3 = self._up_stage(3, down3, bottleneck)
-        up2 = self._up_stage(2, down2, up3)
-        up1 = self._up_stage(1, down1, up2)
+        up3 = self._up_stage(3, down3, bottleneck, generator)
+        up2 = self._up_stage(2, down2, up3, generator)
+        up1 = self._up_stage(1, down1, up2, generator)
         return up1, up2, up3
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         h, w = x.shape[-2:]
-        up1, up2, up3 = self.trunk(x)
+        up1, up2, up3 = self.trunk(x, generator)
         if self.fast_head:
             main = diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1.dtype))
         else:
@@ -202,3 +224,18 @@ class DilatedUNet(nn.Module):
         aux1 = resize_bilinear(aux1[:, None], (h, w))[:, 0]
         aux2 = resize_bilinear(aux2[:, None], (h, w))[:, 0]
         return {"main_out": main, "aux_out1": aux1, "aux_out2": aux2}
+
+
+# The phase-1 frozen set (train_adipose_unet_v3.py:761-773).
+ENCODER_LAYERS = (
+    "down1_conv1", "down1_conv2",
+    "down2_conv1", "down2_conv2",
+    "down3_conv1", "down3_conv2",
+)
+
+
+def encoder_param_mask(params) -> dict[str, bool]:
+    """Trainability of each state-dict entry in phase 1: False for the
+    encoder conv layers the reference freezes (``freeze_encoder_layers``,
+    :760-775), True for everything else."""
+    return {name: name.rsplit(".", 1)[0] not in ENCODER_LAYERS for name in params}

@@ -35,9 +35,14 @@ _SIGNATURES = {
     "adipose_zscore": (_I, _P, _I, _P, _I, _P, _P, _I, _LL, _F, _F, _F, _P),
     # device, x, x_bf16, w, bias, out, npix, channels, stream
     "adipose_sigmoid_head": (_I, _P, _I, _P, _P, _P, _LL, _I, _P),
+    # device, x, x_bf16, w, g, p, dx, partial, partial_rows, dw, dbias, npix,
+    # channels, stream
+    "adipose_sigmoid_head_bwd": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _P),
     # device, x, in_u8, hist, low_scale, out, batch, n, rank_lo, frac_lo,
     # rank_hi, frac_hi, stream
     "adipose_percentile": (_I, _P, _I, _P, _P, _P, _I, _LL, _F, _F, _F, _F, _P),
+    # device, x, ids, out, batch, n, stream
+    "adipose_d4": (_I, _P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,15 +1,21 @@
-"""U-Net sigmoid head over a channels-last activation: CUDA kernel and plain version.
+"""U-Net sigmoid head over a channels-last activation, and its backward:
+CUDA kernels and plain versions.
 
 Replaces the TPU kernel ``diff_sigmoid_head``
-(``adipose_tpu/ops/pallas/unet_kernels.py:54``, body ``_head_kernel``),
-forward only; its VJP belongs to training. The kernel is
-``csrc/unet_kernels.cu``. It is bound by device memory: it reads every
-channel of the full-resolution activation once for two operations each.
-Its design stages each block's contiguous channels-last span in shared
-memory with 16-byte loads and reduces one pixel per thread; the source's
-header says more.
+(``adipose_tpu/ops/pallas/unet_kernels.py:54``, body ``_head_kernel``) and
+its custom VJP ``diff_sigmoid_head_vjp`` (``:94``, ``_head_bwd``). Both
+kernels are in ``csrc/unet_kernels.cu`` and are bound by device memory: the
+forward reads every channel of the full-resolution activation once for two
+operations each, the backward reads it and writes its gradient. The forward
+stages each block's contiguous channels-last span in shared memory with
+16-byte loads and reduces one pixel per thread; the backward writes dx as
+the same span and reduces dw and dbias through per-block partials in a fixed
+order. The source's header says more.
 
-On a CPU tensor the wrapper runs the plain version. On a CUDA tensor it
+:func:`diff_sigmoid_head` is differentiable: a ``torch.autograd.Function``
+whose forward is the head kernel and whose backward is the backward kernel.
+
+On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback.
 """
 
@@ -20,6 +26,7 @@ import torch
 from adipose_tpu_torch.ops.cuda import build
 
 _DTYPES = (torch.bfloat16, torch.float32)
+_BWD_PARTIAL_ROWS = 1024  # the backward kernel's most blocks (csrc kBwdMaxBlocks)
 
 
 def diff_sigmoid_head_plain(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
@@ -29,32 +36,36 @@ def diff_sigmoid_head_plain(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Ten
     return torch.sigmoid(logit + bias)
 
 
-def diff_sigmoid_head(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
-    """``sigmoid(einsum('bchw,c->bhw', x, w) + bias)`` with f32 accumulation.
+def diff_sigmoid_head_backward_plain(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
+                                     g: torch.Tensor):
+    """Plain PyTorch version of :func:`diff_sigmoid_head_backward`, the
+    JAX ``_head_bwd``: ``dlogit = g * p * (1 - p)`` in f32; ``dx = dlogit * w``
+    rounded once to x's dtype, channels-last; ``dw = sum x * dlogit`` in f32
+    cast to w's dtype; ``dbias = sum dlogit``."""
+    dlogit = g * p * (1.0 - p)
+    dx = (dlogit[..., None] * w.to(torch.float32)).to(x.dtype).permute(0, 3, 1, 2)
+    dw = torch.einsum("bchw,bhw->c", x.to(torch.float32), dlogit).to(w.dtype)
+    return dx, dw, dlogit.sum()
 
-    Args:
-      x: (B, C, H, W) activation, bf16 or f32, ``torch.channels_last``.
-      w: (C,) taps in x's dtype.
-      bias: scalar logit offset (float or 0-dim float32 tensor).
 
-    Returns:
-      (B, H, W) float32 probabilities.
-    """
-    if x.device.type == "cpu":
-        return diff_sigmoid_head_plain(x, w, bias)
+def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(
-            f"diff_sigmoid_head: x {x.dtype} and w {w.dtype} must share a dtype in {_DTYPES}")
+        raise TypeError(f"{what}: x {x.dtype} and w {w.dtype} must share a dtype in {_DTYPES}")
     if x.dim() != 4 or w.shape != (x.shape[1],) or x.numel() == 0:
         raise ValueError(
-            f"diff_sigmoid_head: needs (B, C, H, W) x and (C,) w, got "
-            f"{tuple(x.shape)} and {tuple(w.shape)}")
+            f"{what}: needs (B, C, H, W) x and (C,) w, got {tuple(x.shape)} and {tuple(w.shape)}")
     if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(
-            f"diff_sigmoid_head: x must be channels-last contiguous, strides {x.stride()}")
+        raise ValueError(f"{what}: x must be channels-last contiguous, strides {x.stride()}")
     if not (x.is_cuda and w.device == x.device):
-        raise ValueError(
-            f"diff_sigmoid_head: x on {x.device} and w on {w.device}, need one CUDA device")
+        raise ValueError(f"{what}: x on {x.device} and w on {w.device}, need one CUDA device")
+
+
+def diff_sigmoid_head_forward(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
+    """The head kernel alone, outside autograd; see :func:`diff_sigmoid_head`.
+    Counts its launches on ``diff_sigmoid_head.launches``."""
+    if x.device.type == "cpu":
+        return diff_sigmoid_head_plain(x, w, bias)
+    _check(x, w, "diff_sigmoid_head")
     b, c, h, wd = x.shape
     dev = x.device
     w = w.contiguous()
@@ -69,4 +80,73 @@ def diff_sigmoid_head(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
     return out
 
 
+def diff_sigmoid_head_backward(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
+                               g: torch.Tensor):
+    """``(dx, dw, dbias)`` of ``p = diff_sigmoid_head(x, w, bias)`` for the
+    cotangent ``g``.
+
+    Args:
+      x: (B, C, H, W) activation, bf16 or f32, ``torch.channels_last``.
+      w: (C,) taps in x's dtype.
+      p: (B, H, W) float32, the forward's output.
+      g: (B, H, W) float32 cotangent of p.
+
+    Returns:
+      dx (B, C, H, W) in x's dtype, channels-last; dw (C,) in w's dtype;
+      dbias, a 0-dim float32 tensor.
+    """
+    if x.device.type == "cpu":
+        return diff_sigmoid_head_backward_plain(x, w, p, g)
+    _check(x, w, "diff_sigmoid_head_backward")
+    b, c, h, wd = x.shape
+    for name, t in (("p", p), ("g", g)):
+        if t.dtype != torch.float32 or t.shape != (b, h, wd) or t.device != x.device:
+            raise ValueError(f"diff_sigmoid_head_backward: {name} must be ({b}, {h}, {wd}) "
+                             f"float32 on {x.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    dev = x.device
+    w, p, g = w.contiguous(), p.contiguous(), g.contiguous()
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    partial = torch.empty((_BWD_PARTIAL_ROWS, c + 1), dtype=torch.float32, device=dev)
+    dw = torch.empty_like(w)
+    dbias = torch.empty((), dtype=torch.float32, device=dev)
+    index, stream = build.launch_target(dev)
+    code = build.library().adipose_sigmoid_head_bwd(
+        index, x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), g.data_ptr(),
+        p.data_ptr(), dx.data_ptr(), partial.data_ptr(), _BWD_PARTIAL_ROWS, dw.data_ptr(),
+        dbias.data_ptr(), b * h * wd, c, stream)
+    build.check(code, "diff_sigmoid_head_backward")
+    diff_sigmoid_head_backward.launches += 1
+    return dx, dw, dbias
+
+
+class _DiffSigmoidHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        p = diff_sigmoid_head_forward(x, w, bias)
+        ctx.save_for_backward(x, w, p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, p = ctx.saved_tensors
+        return diff_sigmoid_head_backward(x, w, p, g.contiguous())
+
+
+def diff_sigmoid_head(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
+    """``sigmoid(einsum('bchw,c->bhw', x, w) + bias)`` with f32 accumulation,
+    differentiable in x, w and bias.
+
+    Args:
+      x: (B, C, H, W) activation, bf16 or f32, ``torch.channels_last``.
+      w: (C,) taps in x's dtype.
+      bias: scalar logit offset (float or 0-dim float32 tensor).
+
+    Returns:
+      (B, H, W) float32 probabilities.
+    """
+    bias = torch.as_tensor(bias, dtype=torch.float32, device=x.device)
+    return _DiffSigmoidHead.apply(x, w, bias)
+
+
 diff_sigmoid_head.launches = 0
+diff_sigmoid_head_backward.launches = 0

@@ -1,1 +1,1 @@
-"""Checkpoint artifacts and inference functions."""
+"""Checkpoint artifacts, losses' selection, the optimizer and the U-Net trainer."""

@@ -1,19 +1,35 @@
-"""Checkpoint artifacts, read with the JAX package's contract.
+"""Checkpoint artifacts, with the JAX package's contract.
 
 A checkpoint directory keeps the reference's layout
-(``adipose_tpu/train/checkpoint.py``): ``normalization_stats.json``,
-``training_settings.log`` and one directory per weights entry
-(``weights_best_overall``, ``phase2_best``, ...). The JAX package writes
-each weights entry as an orbax checkpoint; the port reads ``params.npz``
-in the same directory, the Flax param tree as numpy, which
-``scripts/export_flax_params_npz.py`` writes from the orbax files.
+(``adipose_tpu/train/checkpoint.py``)::
+
+  checkpoints/segmentation/<timestamp>_<name>_1024_finetune_v3/
+    normalization_stats.json     train-set mean/std
+    phase1_best/ phase2_best/    best params of each phase
+    weights_best_overall/        the final model (phase-2 best)
+    weights_ema/                 the best EMA snapshot
+    phase{1,2}_training.log      per-epoch CSV metrics
+    training_settings.log        hyperparameters and system capture
+
+The JAX package writes each weights entry as an orbax checkpoint; the port
+writes and reads ``params.npz`` in the same directory, the Flax param tree as
+numpy, which ``scripts/export_flax_params_npz.py`` writes from the orbax
+files. So a run trained by the port is served by ``adipose-torch segment``
+and its tree loads into the JAX package's ``DilatedUNet``.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
+import platform
 import re
+import subprocess
+import sys
 from pathlib import Path
+
+import numpy as np
+import torch
 
 from adipose_tpu_torch.core.config import UNetConfig
 from adipose_tpu_torch.models.convert import load_flax_npz, save_flax_npz
@@ -37,6 +53,86 @@ WEIGHT_CANDIDATES_EMA = (
 )
 
 _ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
+
+
+def timestamp_now() -> str:
+    return datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+
+
+def checkpoint_dir_for(checkpoint_name: str, build_timestamp: str | None = None,
+                       root: str | Path = "checkpoints/segmentation",
+                       suffix: str = "_1024_finetune_v3") -> Path:
+    """Timestamped run directory (``train_adipose_unet_v3.py:645-652``)."""
+    d = Path(root) / f"{build_timestamp or timestamp_now()}_{checkpoint_name}{suffix}"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def merge_matching(dst: dict, src: dict) -> dict:
+    """By-name tree merge: take ``src`` leaves whose path and shape match
+    ``dst``; everything else keeps ``dst`` (the reference's by_name +
+    skip_mismatch loading, ``train_adipose_unet_v3.py:881-916``)."""
+    if isinstance(dst, dict) and isinstance(src, dict):
+        return {k: merge_matching(v, src[k]) if k in src else v for k, v in dst.items()}
+    if np.shape(dst) == np.shape(src) and not isinstance(src, dict):
+        return np.asarray(src)
+    return dst  # shape mismatch / extra leaf: keep the fresh init
+
+
+def _git_info() -> dict:
+    try:
+        commit = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+                                timeout=5).stdout.strip()
+        dirty = bool(subprocess.run(["git", "status", "--porcelain"], capture_output=True,
+                                    text=True, timeout=5).stdout.strip())
+        return {"commit": commit, "dirty": dirty}
+    except (OSError, subprocess.SubprocessError):
+        return {"commit": "unknown", "dirty": False}
+
+
+def write_training_settings(ckpt_dir: str | Path, settings: dict) -> None:
+    """``training_settings.log`` with a platform, device and git capture
+    (``train_adipose_unet_v3.py:927-1053``); its ``use_deep_supervision:``
+    and ``init_nb:`` lines are what :func:`detect_model_config` reads."""
+    if torch.cuda.is_available():
+        devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = ["cpu"]
+    lines = ["=== adipose_tpu training settings ===", ""]
+    lines += [f"{k}: {v}" for k, v in settings.items()]
+    lines += [
+        "",
+        "=== system ===",
+        f"platform: {platform.platform()}",
+        f"python: {sys.version.split()[0]}",
+        f"torch: {torch.__version__}",
+        f"devices: {devices}",
+        f"git: {_git_info()}",
+        f"timestamp: {datetime.datetime.now().isoformat()}",
+    ]
+    (Path(ckpt_dir) / "training_settings.log").write_text("\n".join(lines) + "\n")
+
+
+class CsvLogger:
+    """Per-epoch CSV metrics (Keras CSVLogger: the header from the first
+    row). ``append=True`` adopts an existing file's header and appends, so a
+    resumed phase keeps the rows logged before it stopped."""
+
+    def __init__(self, path: str | Path, append: bool = False):
+        self.path = Path(path)
+        self._header = None
+        if append and self.path.exists():
+            first = self.path.read_text().splitlines()
+            if first:
+                self._header = first[0].split(",")
+
+    def log(self, epoch: int, metrics: dict) -> None:
+        row = {"epoch": epoch, **{k: float(v) for k, v in metrics.items()}}
+        if self._header is None:
+            self._header = list(row)
+            self.path.write_text(",".join(self._header) + "\n")
+        with self.path.open("a") as f:
+            f.write(",".join(str(row.get(h, "")) for h in self._header) + "\n")
 
 
 def _is_weights_dir(p: Path) -> bool:

@@ -1,0 +1,405 @@
+"""Two-phase U-Net fine-tuning (``adipose_tpu/train/trainer_unet.py``).
+
+Behavioral spec: ``train_model`` (``train_adipose_unet_v3.py:1072-1443``):
+  phase 1 - frozen encoder, lr 1e-4, EMA decay 0.999 (not saved), best-by-
+            val-Dice checkpoint, early stopping (patience 15), cosine with
+            warmup or ReduceLROnPlateau;
+  phase 2 - all layers from the phase-1 best, lr 1e-5, EMA decay 0.995 with
+            best-snapshot saving, the same callbacks; the final best-overall
+            is the phase-2 best. Artifacts per
+            :mod:`adipose_tpu_torch.train.checkpoint`.
+
+Per batch, on one device and one CUDA stream: the uint8 batch is copied
+from pinned host memory, augmented (:func:`make_augment_step`: u8 -> f32,
+the tier's draws from the phase's generator, the D4 kernel), normalized
+(z-score expression, or the percentile kernel through
+``batched_percentile_unit_fast``), run forward and backward, and the
+trainable params take the Keras-Adam update. Nothing in the epoch loop
+reads the device: the step metrics stay on the device until the epoch's
+means, so the host enqueues ahead while the device works, which is the
+JAX package's 1-deep augment/step pipelining on one stream. A background
+thread decodes the next batches meanwhile (:func:`prefetch_batches`).
+
+Not ported yet (each raises): more than one device (``num_devices > 1``),
+spatial sharding, ``UNetConfig.remat``/``remat_level1``, TF ``.h5``
+pretrained weights; the TPU compile-OOM retry ladder has no counterpart.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
+from adipose_tpu_torch.core.seeding import generator_for
+from adipose_tpu_torch.data.augment import augment_batch
+from adipose_tpu_torch.data.loader import TileDataset, prefetch_batches
+from adipose_tpu_torch.data.stats import compute_mean_std, dataset_image_paths
+from adipose_tpu_torch.models.convert import flax_unet_to_torch, torch_unet_to_flax
+from adipose_tpu_torch.models.unet import DilatedUNet, encoder_param_mask
+from adipose_tpu_torch.ops import losses as L
+from adipose_tpu_torch.ops.metrics import activation_stats
+from adipose_tpu_torch.ops.normalize import batched_percentile_unit_fast
+from adipose_tpu_torch.train import checkpoint as ckpt
+from adipose_tpu_torch.train.ema import EmaTracker
+from adipose_tpu_torch.train.schedules import (EarlyStopping, ReduceLROnPlateau,
+                                               cosine_with_warmup)
+from adipose_tpu_torch.train.state import TrainState, set_learning_rate, unet_loss_from_config
+
+
+def make_augment_step(tier: str):
+    """``augment_step(generator, images_u8, masks_u8)``: the tier over a
+    (B, H, W) uint8 batch, as float32 images and masks."""
+
+    def augment_step(generator, images_u8, masks_u8):
+        return augment_batch(generator, images_u8.to(torch.float32),
+                             masks_u8.to(torch.float32), tier)
+
+    return augment_step
+
+
+def normalize_images(images: torch.Tensor, norm_method: str, mean: torch.Tensor,
+                     std: torch.Tensor, p_low: float, p_high: float) -> torch.Tensor:
+    """The train and val steps' normalization: ``(x - mean) / (std + 1e-10)``
+    with 0-dim float32 statistics, or the per-tile percentile stretch
+    (``TileDataset`` :589-592) through the percentile kernel."""
+    if norm_method == "zscore":
+        return (images - mean) / (std + 1e-10)
+    return batched_percentile_unit_fast(images, p_low, p_high)
+
+
+def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_high: float):
+    """``step(state, images, masks, generator, mean, std) -> metrics``:
+    normalize, forward and backward, then the optimizer update, on an
+    augmented float32 batch. ``generator`` draws the dropout masks; the
+    metrics are device tensors."""
+
+    def step(state: TrainState, images, masks, generator, mean, std):
+        images = normalize_images(images.to(torch.float32), norm_method, mean, std,
+                                  p_low, p_high)
+        masks = masks.to(torch.float32)
+        model.train()
+        out = model(images, generator=generator)
+        loss = loss_fn(masks, out)
+        main = out["main_out"] if isinstance(out, dict) else out
+        grads = torch.autograd.grad(loss, [state.params[k] for k in state.trainable],
+                                    allow_unused=True)
+        state.apply_gradients(grads)
+        with torch.no_grad():
+            return {"loss": loss.detach(), "dice_coef": L.dice_coef(masks, main.detach())}
+
+    return step
+
+
+def _make_val_step(model, loss_fn, norm_method: str, p_low: float, p_high: float):
+    """``step(images_u8, masks_u8, mean, std) -> metrics``: loss, Dice and
+    activation statistics of the main output, in eval mode."""
+
+    def step(images_u8, masks_u8, mean, std):
+        model.eval()
+        with torch.inference_mode():
+            images = normalize_images(images_u8.to(torch.float32), norm_method, mean, std,
+                                      p_low, p_high)
+            masks = masks_u8.to(torch.float32)
+            out = model(images)
+            main = out["main_out"] if isinstance(out, dict) else out
+            return {"loss": loss_fn(masks, out), "dice_coef": L.dice_coef(masks, main),
+                    **activation_stats(main)}
+
+    return step
+
+
+def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on the device without waiting for the stream: pinned
+    memory and an asynchronous copy (a pageable copy would wait)."""
+    t = torch.from_numpy(np.ascontiguousarray(batch))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _epoch_means(metrics: list[dict], prefix: str = "") -> dict[str, float]:
+    """Host means of per-step device metrics: one read per metric name."""
+    return {f"{prefix}{k}": float(np.mean(torch.stack([m[k] for m in metrics]).cpu().numpy()))
+            for k in metrics[0]}
+
+
+def _host_copy(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+
+
+def init_unet_params(model: DilatedUNet, seed: int) -> dict[str, torch.Tensor]:
+    """Flax-style initialization of ``model``'s architecture from the
+    ``unet.init`` generator, drawn on the host so that it does not depend on
+    the device: a host state dict."""
+    host = DilatedUNet(init_nb=model.init_nb, use_deep_supervision=model.use_deep_supervision,
+                       dilation_rates=model.dilation_rates)
+    host.init_params(generator_for("unet.init", seed))
+    return {k: v.detach() for k, v in host.state_dict().items()}
+
+
+class UNetTrainer:
+    def __init__(
+        self,
+        data_root: str | Path,
+        cfg: TrainConfig | None = None,
+        model_cfg: UNetConfig | None = None,
+        checkpoint_name: str = "adipose_sybreosin",
+        build_timestamp: str | None = None,
+        checkpoint_root: str | Path = "checkpoints/segmentation",
+        auto_resume: bool = False,
+        device: str | torch.device = "cuda",
+    ):
+        self.auto_resume = auto_resume
+        self.cfg = cfg or TrainConfig()
+        self.model_cfg = model_cfg or UNetConfig()
+        self.device = torch.device(device)
+        if self.cfg.num_devices > 1:
+            raise NotImplementedError("train-unet --num-devices > 1 is not ported yet")
+        if self.cfg.shard_spatial:
+            raise NotImplementedError("train-unet --shard-spatial is not ported yet")
+        if self.model_cfg.remat or self.model_cfg.remat_level1:
+            raise NotImplementedError("UNetConfig.remat / remat_level1 are not ported yet")
+        self.data_root = Path(data_root)
+        self.ckpt_dir = ckpt.checkpoint_dir_for(checkpoint_name, build_timestamp,
+                                                checkpoint_root)
+        self.model = DilatedUNet(
+            init_nb=self.model_cfg.init_nb,
+            dropout_rate=self.model_cfg.dropout_rate,
+            use_deep_supervision=self.model_cfg.use_deep_supervision,
+            dilation_rates=tuple(self.model_cfg.dilation_rates),
+            compute_dtype=(torch.bfloat16 if self.model_cfg.compute_dtype == "bfloat16"
+                           else torch.float32),
+            fast_head=self.model_cfg.fast_head,
+            device=self.device,
+        )
+        self.loss_fn = unet_loss_from_config(self.cfg)
+        self.history: list = []
+
+        ds = self.data_root / "dataset"
+        self.train_data = TileDataset(ds / "train" / "images", ds / "train" / "masks",
+                                      self.cfg.batch_size, seed=self.cfg.seed,
+                                      cache_limit_mb=self.cfg.cache_limit_mb)
+        self.val_data = TileDataset(ds / "val" / "images", ds / "val" / "masks",
+                                    self.cfg.batch_size, seed=self.cfg.seed,
+                                    cache_limit_mb=self.cfg.cache_limit_mb)
+        if not len(self.train_data):
+            raise FileNotFoundError(f"no training tiles under {ds}")
+        if not len(self.val_data):
+            raise FileNotFoundError(f"no validation tiles under {ds}")
+
+        # Global train stats -> normalization_stats.json (:1194-1207)
+        self.mean, self.std = compute_mean_std(dataset_image_paths(ds / "train" / "images"))
+        ckpt.save_normalization_stats(self.ckpt_dir, self.mean, self.std,
+                                      self.cfg.normalization_method)
+
+    # -- params ---------------------------------------------------------------
+
+    def init_params(self) -> dict[str, torch.Tensor]:
+        return init_unet_params(self.model, self.cfg.seed)
+
+    def _load(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Copy ``params`` into the model; returns the model's own params."""
+        live = dict(self.model.named_parameters())
+        with torch.no_grad():
+            for k, v in params.items():
+                live[k].copy_(v)
+        return live
+
+    def load_pretrained(self, params: dict[str, torch.Tensor], path: str | Path):
+        """By-name weight transfer with mismatch skipping
+        (``train_adipose_unet_v3.py:881-916``) from a run or weights
+        directory holding ``params.npz``; aux-head and shape-mismatched
+        entries keep their fresh init."""
+        p = Path(path)
+        if p.suffix == ".h5" or p.name.endswith(".weights.h5"):
+            raise NotImplementedError("--pretrained-weights from a TF .h5 file is not ported "
+                                      "yet; export the run's params.npz instead")
+        loaded = ckpt.load_params(ckpt.resolve_weights_path(p))
+        merged = ckpt.merge_matching(torch_unet_to_flax(params), loaded)
+        out = flax_unet_to_torch(merged)
+        print(f"[pretrained] merged by name from {p} ({len(out)} leaves)")
+        return out
+
+    def _save(self, name: str, params: dict[str, torch.Tensor]) -> None:
+        ckpt.save_params(self.ckpt_dir, name, torch_unet_to_flax(params))
+
+    # -- phases ---------------------------------------------------------------
+
+    def _run_phase(self, phase: int, params, epochs: int, lr: float, min_lr: float,
+                   ema_decay: float, freeze_encoder: bool, save_ema: bool,
+                   augment_tier: str):
+        cfg, dev = self.cfg, self.device
+        live = self._load(params)
+        mask = encoder_param_mask(live) if freeze_encoder else None
+        state = TrainState.create(live, cfg.optimizer, lr, cfg.weight_decay, mask)
+        train_step = _make_fused_train_step(self.model, self.loss_fn, cfg.normalization_method,
+                                            cfg.percentile_low, cfg.percentile_high)
+        val_step = _make_val_step(self.model, self.loss_fn, cfg.normalization_method,
+                                  cfg.percentile_low, cfg.percentile_high)
+        augment_step = make_augment_step(augment_tier)
+        warmup = cfg.warmup_epochs if phase == 1 else cfg.warmup_epochs_phase2
+        schedule = (cosine_with_warmup(lr, min_lr, warmup, epochs)
+                    if cfg.use_cosine_schedule else None)
+        plateau = None if schedule else ReduceLROnPlateau(lr=lr, min_lr=min_lr)
+        stopper = EarlyStopping(patience=cfg.early_stopping_patience)
+        ema = EmaTracker(decay=ema_decay) if cfg.use_ema else None
+
+        mean = torch.tensor(self.mean, dtype=torch.float32, device=dev)
+        std = torch.tensor(self.std, dtype=torch.float32, device=dev)
+        best_dice = -np.inf
+        best_params = _host_copy(live)
+
+        # Preemption recovery from the rolling 'latest' entry: params, the
+        # phase-best snapshot, plateau LR, early-stop counters and the EMA;
+        # the optimizer moments restart fresh, as in the JAX package.
+        start_epoch = 0
+        latest_meta = self.ckpt_dir / "latest_state.json"
+        if self.auto_resume and latest_meta.exists():
+            meta = json.loads(latest_meta.read_text())
+            if meta.get("phase") == phase and (self.ckpt_dir / "latest").exists():
+                self._load(flax_unet_to_torch(ckpt.load_params(self.ckpt_dir / "latest")))
+                start_epoch = int(meta["epoch"]) + 1
+                best_dice = float(meta.get("best_dice", -np.inf))
+                best_path = self.ckpt_dir / f"phase{phase}_best"
+                if best_dice > -np.inf:
+                    if best_path.exists():
+                        best_params = flax_unet_to_torch(ckpt.load_params(best_path))
+                    else:
+                        print(f"[resume] WARNING: recorded best_dice {best_dice:.4f} but "
+                              f"{best_path.name} is missing - resetting best to -inf")
+                        best_dice = -np.inf
+                if plateau is not None and "plateau_lr" in meta:
+                    plateau.lr = float(meta["plateau_lr"])
+                    if meta.get("plateau_best") is not None:
+                        plateau.best = float(meta["plateau_best"])
+                        plateau.wait = int(meta.get("plateau_wait", 0))
+                    set_learning_rate(state.optimizer, plateau.lr)
+                if meta.get("stopper_best") is not None:
+                    stopper.best = float(meta["stopper_best"])
+                    stopper.best_epoch = int(meta.get("stopper_best_epoch", -1))
+                    stopper.wait = int(meta.get("stopper_wait", 0))
+                if ema is not None and (self.ckpt_dir / "latest_ema").exists():
+                    ema.ema_params = {k: v.to(dev) for k, v in flax_unet_to_torch(
+                        ckpt.load_params(self.ckpt_dir / "latest_ema")).items()}
+                    if meta.get("ema_best_metric") is not None:
+                        ema.best_metric = float(meta["ema_best_metric"])
+                print(f"[resume] phase {phase} from epoch {start_epoch} "
+                      f"(best dice {best_dice:.4f}; optimizer moments fresh)")
+
+        logger = ckpt.CsvLogger(self.ckpt_dir / f"phase{phase}_training.log",
+                                append=start_epoch > 0)
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            if schedule:
+                set_learning_rate(state.optimizer, schedule(epoch))
+            # one generator per epoch: the batch order and the draws of any
+            # epoch are reproducible in isolation, as the JAX key schedule
+            gen = generator_for(f"train.p{phase}", cfg.seed, epoch, device=dev)
+            train_metrics = []
+            for imgs, masks in prefetch_batches(self.train_data.epoch_batches(epoch)):
+                aug_imgs, aug_masks = augment_step(gen, _to_device(imgs, dev),
+                                                   _to_device(masks, dev))
+                train_metrics.append(train_step(state, aug_imgs, aug_masks, gen, mean, std))
+            val_metrics = [val_step(_to_device(imgs, dev), _to_device(masks, dev), mean, std)
+                           for imgs, masks in prefetch_batches(
+                               self.val_data.epoch_batches(epoch, shuffle=False))]
+
+            tm = _epoch_means(train_metrics)
+            vm = _epoch_means(val_metrics, "val_")
+            row = {**tm, **vm, "lr": schedule(epoch) if schedule else plateau.lr,
+                   "epoch_time_s": time.time() - t0}
+            logger.log(epoch, row)
+            self.history.append({"phase": phase, "epoch": epoch, **row})
+
+            val_dice = vm["val_dice_coef"]
+            params_now = {k: v.detach() for k, v in live.items()}
+            if ema is not None:
+                ema.update(params_now, metric=val_dice if save_ema else None)
+            if val_dice > best_dice:
+                best_dice = val_dice
+                best_params = _host_copy(params_now)
+                self._save(f"phase{phase}_best", best_params)
+            if plateau is not None:
+                set_learning_rate(state.optimizer, plateau.update(val_dice))
+            if self.auto_resume:
+                self._save("latest", params_now)
+                if ema is not None and ema.ema_params is not None:
+                    self._save("latest_ema", ema.ema_params)
+                latest_meta.write_text(json.dumps({
+                    "phase": phase, "epoch": epoch, "best_dice": float(best_dice),
+                    "plateau_lr": plateau.lr if plateau is not None else None,
+                    "plateau_best": plateau.best if plateau is not None else None,
+                    "plateau_wait": plateau.wait if plateau is not None else 0,
+                    "ema_best_metric": ema.best_metric if ema is not None else None,
+                    "stopper_best": stopper.best,
+                    "stopper_best_epoch": stopper.best_epoch,
+                    "stopper_wait": stopper.wait,
+                }))
+            if stopper.update(val_dice, epoch):
+                break
+
+        if ema is not None and save_ema and ema.snapshot is not None:
+            self._save("weights_ema", ema.snapshot)
+        return best_params, best_dice
+
+    def train(self, epochs_phase1: int | None = None, epochs_phase2: int | None = None,
+              resume_from: str | Path | None = None,
+              pretrained_weights: str | Path | None = None):
+        """``resume_from``: a run or weights directory; phase 1 is skipped and
+        phase 2 fine-tunes from those weights (``--resume-from``,
+        ``train_adipose_unet_v3.py:1336-1339``). ``pretrained_weights``:
+        by-name transfer into the fresh init before phase 1
+        (``--pretrained-weights``, :881-916)."""
+        cfg = self.cfg
+        tier = cfg.augment_level
+        params = self.init_params()
+        if pretrained_weights:
+            params = self.load_pretrained(params, pretrained_weights)
+        if resume_from is not None:
+            params = flax_unet_to_torch(ckpt.load_params(ckpt.resolve_weights_path(resume_from)))
+
+        ckpt.write_training_settings(self.ckpt_dir, {
+            **vars(cfg),
+            "use_deep_supervision": self.model_cfg.use_deep_supervision,
+            "init_nb": self.model_cfg.init_nb,
+            "tile_size": self.model_cfg.tile_size,
+            "dropout_rate": self.model_cfg.dropout_rate,
+            "dilation_rates": tuple(self.model_cfg.dilation_rates),
+            "train_tiles": len(self.train_data),
+            "val_tiles": len(self.val_data),
+            "normalization_mean": self.mean,
+            "normalization_std": self.std,
+        })
+        e1 = cfg.epochs_phase1 if epochs_phase1 is None else epochs_phase1
+        e2 = cfg.epochs_phase2 if epochs_phase2 is None else epochs_phase2
+
+        # Phase-2 preemption: saved progress already in phase 2 means phase 1
+        # is done; re-running it would clobber the phase-2 rolling state.
+        resumed_past_phase1 = False
+        meta_path = self.ckpt_dir / "latest_state.json"
+        if self.auto_resume and meta_path.exists():
+            meta = json.loads(meta_path.read_text())
+            if meta.get("phase") == 2 and (self.ckpt_dir / "phase1_best").exists():
+                best1 = flax_unet_to_torch(ckpt.load_params(self.ckpt_dir / "phase1_best"))
+                dice1 = float("nan")
+                resumed_past_phase1 = True
+                print("[resume] phase 1 already complete; resuming phase 2")
+        if resumed_past_phase1:
+            pass
+        elif resume_from is not None:
+            best1, dice1 = params, float("nan")
+        else:
+            best1, dice1 = self._run_phase(1, params, e1, cfg.lr_phase1, cfg.min_lr,
+                                           cfg.ema_decay_phase1, freeze_encoder=True,
+                                           save_ema=False, augment_tier=tier)
+        best2, dice2 = self._run_phase(2, best1, e2, cfg.lr_phase2, cfg.min_lr * 0.1,
+                                       cfg.ema_decay_phase2, freeze_encoder=False,
+                                       save_ema=True, augment_tier=tier)
+        self._save("weights_best_overall", best2)
+        return {"phase1_best_dice": dice1, "phase2_best_dice": dice2,
+                "checkpoint_dir": str(self.ckpt_dir)}

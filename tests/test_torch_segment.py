@@ -119,8 +119,15 @@ def test_segment_refuses_what_is_not_ported(run_and_tiles, tmp_path, flag):
 
 
 def test_cli_imports_without_jax():
-    code = ("import sys, adipose_tpu_torch.cli.main\n"
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
+    """The command line, the trainer, the augmentation and every other
+    module of the port import without JAX or the JAX package."""
+    code = ("import sys, pkgutil, importlib, adipose_tpu_torch\n"
+            "import adipose_tpu_torch.cli.main, adipose_tpu_torch.train.trainer_unet\n"
+            "import adipose_tpu_torch.data.augment\n"
+            "for m in pkgutil.walk_packages(adipose_tpu_torch.__path__, 'adipose_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'adipose_tpu'))\n"
+            "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -30,6 +30,17 @@ _BLOCK_SCOPES = {
 }
 
 
+def hwio_to_oihw(kernel: np.ndarray) -> np.ndarray:
+    """A Flax/JAX conv kernel (H, W, in, out) as a torch conv weight
+    (out, in, H, W); a view."""
+    return kernel.transpose(3, 2, 0, 1)
+
+
+def oihw_to_hwio(weight: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`hwio_to_oihw`; a view."""
+    return weight.transpose(2, 3, 1, 0)
+
+
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -58,7 +69,7 @@ def flax_unet_to_torch(params: dict) -> dict[str, torch.Tensor]:
         layer, leaf = path[-2], path[-1]
         a = np.asarray(arr, dtype=np.float32)
         if leaf == "kernel":
-            state[f"{layer}.weight"] = torch.from_numpy(np.array(a.transpose(3, 2, 0, 1), order="C"))
+            state[f"{layer}.weight"] = torch.from_numpy(np.array(hwio_to_oihw(a), order="C"))
         elif leaf == "bias":
             state[f"{layer}.bias"] = torch.from_numpy(np.array(a))
         else:
@@ -75,7 +86,7 @@ def torch_unet_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
         a = t.detach().to("cpu", torch.float32).numpy()
         scope = ("params",) + ((_BLOCK_SCOPES[layer],) if layer in _BLOCK_SCOPES else ())
         if leaf == "weight":
-            flat[scope + (layer, "kernel")] = np.array(a.transpose(2, 3, 1, 0), order="C")
+            flat[scope + (layer, "kernel")] = np.array(oihw_to_hwio(a), order="C")
         elif leaf == "bias":
             flat[scope + (layer, "bias")] = np.array(a)
         else:
@@ -95,7 +106,7 @@ def flax_inception_to_torch(variables: dict) -> dict[str, torch.Tensor]:
         a = np.asarray(arr, dtype=np.float32)
         *scope, leaf = path[1:]
         if leaf == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            a = hwio_to_oihw(a) if a.ndim == 4 else a.T
             leaf = "weight"
         state[".".join([*scope, leaf])] = torch.from_numpy(np.array(a, order="C"))
     return state
@@ -109,7 +120,7 @@ def torch_inception_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
         *scope, leaf = key.split(".")
         a = t.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            a = oihw_to_hwio(a) if a.ndim == 4 else a.T
             leaf = "kernel"
         collection = "batch_stats" if leaf in ("mean", "var") else "params"
         flat[(collection, *scope, leaf)] = np.array(a, order="C")

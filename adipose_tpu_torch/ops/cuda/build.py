@@ -43,6 +43,8 @@ _SIGNATURES = {
     "adipose_percentile": (_I, _P, _I, _P, _P, _P, _I, _LL, _F, _F, _F, _F, _P),
     # device, x, ids, out, batch, n, stream
     "adipose_d4": (_I, _P, _P, _P, _I, _I, _P),
+    # device, x, out, n_h, n_w, n_b, n_c, s_h, s_w, s_b, s_c, stream
+    "adipose_layout_ident": (_I, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
 }
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's segment path, WSI cascade and U-Net training once
-on one CUDA GPU and check its kernels.
+"""Drive the PyTorch port's segment path, WSI cascade, U-Net training and
+conv-chain layout probe once on one CUDA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -19,6 +19,10 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
   5c. kernel B' (head backward) against its plain version at the training
      path's head shapes (batch 2; C = 44, 176, 88; bf16, and f32 at C = 44),
      and the autograd Function against plain autograd
+  5d. kernel I (identity on the (H, W, B, C) view) bit-equal to its plain
+     version, strides kept, on the probe's view of a channels-last
+     (16, 64, 1024, 1024) bf16 activation, a contiguous (1024, 1024, 16, 64)
+     tensor and (64, 1000, 3, 44), whose C rows take the scalar tail
   6. slice   a seeded init_nb=44 checkpoint loaded through the port's
      ``_load_segmenter``, requests of 16 distinct 1024^2 uint8 tiles
      answered through ``segment_batch``, checked against the same model run
@@ -36,6 +40,11 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
   9. fast head ``UNetTrainer`` with ``UNetConfig(fast_head=True)``: kernels
      B and B' 3 per step; its first step through the kernels against the
      same step with the plain versions
+  9b. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
+     (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
+     call; with cuDNN deterministic, the chain through I bit-equal to the
+     chain without it; each chain's device activities by name, and the
+     kernels the chain through I adds besides I (the probe's answer)
  10. timing  CUDA events, after warmup, on distinct batches, in turns with
      the plain versions; device time per call from torch.profiler; train
      step and augmentation at batch 2 and 8, and the device's idle share
@@ -72,6 +81,7 @@ from adipose_tpu_torch.ops.cuda.percentile import (percentile_normalize_u8,
 from adipose_tpu_torch.ops.cuda.preprocess import (fused_zscore_normalize,
                                                    fused_zscore_normalize_plain)
 from adipose_tpu_torch.ops.cuda.d4 import d4_transform_batch, d4_transform_batch_plain
+from adipose_tpu_torch.ops.cuda.layout import ident_hwbc, ident_hwbc_plain
 from adipose_tpu_torch.ops.cuda.unet_kernels import (diff_sigmoid_head,
                                                      diff_sigmoid_head_backward,
                                                      diff_sigmoid_head_backward_plain,
@@ -81,6 +91,7 @@ from adipose_tpu_torch.ops.d4 import INVERSE_IDS
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
 from adipose_tpu_torch.models.convert import load_flax_npz
 from adipose_tpu_torch.ops.normalize import TRAIN_MEAN_DEFAULT, TRAIN_STD_DEFAULT
+from adipose_tpu_torch.scripts import exp_layout_probe as probe
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.state import TrainState, unet_loss_from_config
 from adipose_tpu_torch.train.trainer_unet import (UNetTrainer, _make_fused_train_step,
@@ -138,6 +149,8 @@ KERNELS = {  # name: (wrapper, plain version, source, TPU kernel it replaces)
     "d4_transform_batch": (d4_transform_batch, d4_transform_batch_plain,
                            "adipose_tpu_torch/csrc/d4.cu",
                            "adipose_tpu/ops/pallas/layout.py:29"),
+    "ident_hwbc": (ident_hwbc, ident_hwbc_plain, "adipose_tpu_torch/csrc/layout.cu",
+                   "scripts/exp_layout_probe.py:37"),
 }
 
 
@@ -166,10 +179,15 @@ def in_turns(plain, kernel, inputs: list, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def profiled_ms(fn, inputs: list, iters: int, names: tuple[str, ...]) -> float | None:
-    """Device time per call of ``fn`` from torch.profiler: the summed time of
-    the device activities whose names contain one of ``names`` (each one's
-    share is printed); None when the profiler records no device time."""
+def device_activities(fn, inputs: list, iters: int) -> dict[str, tuple[float, int, int]]:
+    """Each device activity of ``fn`` over ``iters`` calls cycling ``inputs``,
+    after one warm-up call per input, under torch.profiler: name -> (device
+    ms per call, launches per call, launches recorded).
+
+    Late in this script the profiler leaves a launch of a session
+    unrecorded now and then; so a call's time is the mean time of the
+    recorded launches times the launches per call, which is the recorded
+    count over the calls, rounded."""
     from torch.profiler import ProfilerActivity, profile
 
     for x in inputs:
@@ -179,15 +197,29 @@ def profiled_ms(fn, inputs: list, iters: int, names: tuple[str, ...]) -> float |
         for i in range(iters):
             fn(inputs[i % len(inputs)])
         torch.cuda.synchronize()
-    per_name = {n: 0.0 for n in names}
+    total: dict[str, tuple[float, int]] = {}
     for e in prof.key_averages():
-        for n in names:
-            if n in e.key:
-                per_name[n] += device_us(e)
-    us = sum(per_name.values())
-    print("  device ms per call: " + ", ".join(
-        f"{n} {v / iters / 1000.0:.4f}" for n, v in per_name.items()))
-    return us / iters / 1000.0 if us > 0 else None
+        if device_us(e) > 0:
+            ms, n = total.get(e.key, (0.0, 0))
+            total[e.key] = (ms + device_us(e) / 1000.0, n + e.count)
+    acts = {}
+    for key, (ms, n) in total.items():
+        per_call = max(1, round(n / iters))
+        acts[key] = (ms / n * per_call, per_call, n)
+    return acts
+
+
+def profiled_ms(fn, inputs: list, iters: int, names: tuple[str, ...]) -> float | None:
+    """Device time per call of ``fn`` from torch.profiler: the summed time of
+    the device activities whose names contain one of ``names`` (each one's
+    share is printed); None when the profiler records no device time."""
+    acts = device_activities(fn, inputs, iters)
+    per_name = {n: sum(ms for k, (ms, _, _) in acts.items() if n in k) for n in names}
+    lost = sum(per_call * iters - n for _, per_call, n in acts.values())
+    ms = sum(per_name.values())
+    print("  device ms per call: " + ", ".join(f"{n} {v:.4f}" for n, v in per_name.items())
+          + (f" ({lost} of the launches unrecorded)" if lost else ""))
+    return ms if ms > 0 else None
 
 
 def device_us(event) -> float:
@@ -387,6 +419,84 @@ def phase_head_backward(dev, g) -> float:
     return worst
 
 
+def phase_ident(dev, g) -> float:
+    """Kernel I vs plain: bit-equal, strides kept, on the probe's view, a
+    contiguous (H, W, B, C) tensor and an odd shape with a scalar tail."""
+    def normal(*shape):
+        return torch.randn(shape, device=dev, generator=g, dtype=torch.bfloat16)
+
+    b, s, c = probe.BATCH, probe.SIZE, probe.CHANNELS
+    cases = [(f"({s},{s},{b},{c}) view of a channels-last ({b},{c},{s},{s})",
+              lambda: normal(b, s, s, c).permute(1, 2, 0, 3)),
+             (f"({s},{s},{b},{c}) contiguous", lambda: normal(s, s, b, c)),
+             ("(64,1000,3,44) contiguous", lambda: normal(64, 1000, 3, 44))]
+    for case, make in cases:
+        t = make()
+        k = ident_hwbc(t)
+        plain = ident_hwbc_plain(t)
+        torch.cuda.synchronize()
+        if k.stride() != t.stride():
+            raise AssertionError(f"ident_hwbc {case}: strides {k.stride()}, input {t.stride()}")
+        if not (torch.equal(bits(k), bits(plain)) and torch.equal(bits(k), bits(t))):
+            raise AssertionError(f"ident_hwbc {case}: not bit-equal to plain and the input")
+        del t, k, plain
+    torch.cuda.empty_cache()
+    print(f"kernel ident_hwbc {'; '.join(case for case, _ in cases)} bf16: bit-equal to plain "
+          f"and to the input, strides kept")
+    return 0.0
+
+
+def phase_layout_probe(dev, smi: str) -> dict[str, int]:
+    """The layout probe at full shape through its ``main``; then chain_kernel
+    bit-equal to chain_plain with cuDNN deterministic, each chain's device
+    activities, and the kernels chain_kernel runs besides I and chain_plain's."""
+    reset_launches()
+    times = probe.main(["--device", str(dev)])
+    counts = launches()
+    calls = 1 + probe.ITERS  # a warm-up and the timed calls
+    want = {name: 0 for name in KERNELS} | {"ident_hwbc": calls}
+    if counts != want:
+        raise AssertionError(f"layout probe launches {counts}, want {want}: I once per call")
+
+    args = probe.probe_inputs(probe.BATCH, probe.SIZE, probe.CHANNELS, dev,
+                              torch.Generator(device=dev).manual_seed(SEED))
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        plain, kernel = probe.chain_plain(*args), probe.chain_kernel(*args)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    if not torch.equal(bits(plain), bits(kernel)):
+        raise AssertionError(f"chain_kernel {kernel.item()} vs chain_plain {plain.item()}: "
+                             f"not bit-equal")
+
+    iters = 3
+    acts = {name: device_activities(lambda a: fn(*a), [args], iters)
+            for name, fn in (("chain_plain", probe.chain_plain),
+                             ("chain_kernel", probe.chain_kernel))}
+    ident = {k: v for k, v in acts["chain_kernel"].items() if "ident_hwbc_kernel" in k}
+    if [per_call for _, per_call, _ in ident.values()] != [1]:
+        raise AssertionError(f"kernel I under the profiler {ident}, want one launch a call")
+    ident_ms = sum(ms for ms, _, _ in ident.values())
+    # launched more often a call through I than without it, I aside
+    extra = sorted(k for k, (_, per_call, _) in acts["chain_kernel"].items()
+                   if k not in ident and per_call > acts["chain_plain"].get(k, (0.0, 0, 0))[1])
+    shape = f"({probe.BATCH},{probe.CHANNELS},{probe.SIZE},{probe.SIZE})"
+    print(f"layout probe: {shape} bf16 channels-last through exp_layout_probe.main; launches "
+          f"{counts} over {calls} chain_kernel calls; chain_kernel bit-equal to chain_plain "
+          f"(max {plain.item()}) with cuDNN deterministic; plain {times['plain']:.4f} ms, "
+          f"kernel-ident {times['kernel-ident']:.4f} ms by CUDA events, gap "
+          f"{times['kernel-ident'] - times['plain']:.4f} ms; kernel I {ident_ms:.4f} ms device "
+          f"time per call by torch.profiler [{smi}]")
+    for name, act in acts.items():
+        print(f"  {name} device ms per call (launches a call, recorded over {iters} calls): "
+              + "; ".join(f"{k[:90]} {ms:.4f} ({per_call}, {n})"
+                          for k, (ms, per_call, n) in sorted(act.items(), key=lambda kv: -kv[1][0])))
+    print(f"  kernels chain_kernel launches beyond chain_plain's, I aside: {json.dumps(extra)}")
+    return counts
+
+
 def phase_percentile(dev, g) -> float:
     """Kernel P vs plain at the classifier gate's shape; max abs error."""
     u8 = torch.randint(0, 256, (BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev, generator=g)
@@ -433,7 +543,7 @@ def phase_slice(dev, run: Path, smi: str) -> dict:
     counts = launches()
     want = {"fused_zscore_normalize": REQUESTS, "diff_sigmoid_head": REQUESTS,
             "percentile_normalize_u8": 0, "diff_sigmoid_head_backward": 0,
-            "d4_transform_batch": 0}
+            "d4_transform_batch": 0, "ident_hwbc": 0}
     if counts != want:
         raise AssertionError(f"segment path launches {counts}, want {want}")
     for p in preds:
@@ -515,7 +625,7 @@ def phase_cascade(dev, tmp: Path, seg_run: Path, smi: str) -> dict:
     segment_batches = sum(math.ceil(c["n_positive"] / BATCH) for c in per_chunk)
     want = {"fused_zscore_normalize": segment_batches, "diff_sigmoid_head": segment_batches,
             "percentile_normalize_u8": classify_batches, "diff_sigmoid_head_backward": 0,
-            "d4_transform_batch": 0}
+            "d4_transform_batch": 0, "ident_hwbc": 0}
     if counts != want or min(segment_batches, classify_batches) < 1:
         raise AssertionError(f"cascade launches {counts}, want {want} (one per batch)")
     n_tiles, n_good = log["n_tiles"], sum(c["n_good"] for c in per_chunk)
@@ -667,7 +777,8 @@ def train_counts(steps: int, val_batches: int, fast_head: bool) -> dict[str, int
     heads = 3 if fast_head else 0
     return {"fused_zscore_normalize": 0, "diff_sigmoid_head": heads * (steps + val_batches),
             "percentile_normalize_u8": steps + val_batches,
-            "diff_sigmoid_head_backward": heads * steps, "d4_transform_batch": 2 * steps}
+            "diff_sigmoid_head_backward": heads * steps, "d4_transform_batch": 2 * steps,
+            "ident_hwbc": 0}
 
 
 def check_run(run: Path, what: str) -> dict:
@@ -932,29 +1043,48 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
           f"plain {d_plain:.4f} ms by CUDA events; device time {d_dev} ms per call by "
           f"torch.profiler [{smi}]")
     del d_in
+
+    # Kernel I at the layout probe's shape: the (H, W, B, C) view of a
+    # channels-last (16, 64, 1024, 1024) bf16 activation; clone is the one
+    # PyTorch call that computes the same function.
+    views = [torch.randn((probe.BATCH, probe.SIZE, probe.SIZE, probe.CHANNELS), device=dev,
+                         generator=g, dtype=torch.bfloat16).permute(1, 2, 0, 3) for _ in range(2)]
+    i_ms, i_plain = in_turns(ident_hwbc_plain, ident_hwbc, views, 10)
+    i_lib = cuda_ms(torch.clone, views, 10)
+    i_dev = profiled_ms(ident_hwbc, views, 10, ("ident_hwbc_kernel",))
+    i_bytes = 2 * views[0].numel() * views[0].element_size()
+    print(f"timing ident_hwbc {tuple(views[0].shape)} bf16 view of a channels-last activation: "
+          f"kernel {i_ms:.4f} ms, plain (empty_like + copy_) {i_plain:.4f} ms, clone {i_lib:.4f} "
+          f"ms by CUDA events; device time {i_dev} ms per call by torch.profiler; bound "
+          f"{bound(i_bytes, 0)[0]:.4f} ms [{smi}]")
+    del views
     n = BATCH * SIZE * SIZE
-    return {
+    return {  # name: (ms, plain ms, device ms, bound, library call ms)
         # u8 in, bf16 out, (B, 3) stats; ~8 f32 operations a pixel
-        "fused_zscore_normalize": (a_ms, a_plain, a_dev, bound(n * 3 + BATCH * 12, 8 * n)),
+        "fused_zscore_normalize": (a_ms, a_plain, a_dev, bound(n * 3 + BATCH * 12, 8 * n), None),
         # bf16 activation and taps in, f32 out; a multiply-add per channel
         "diff_sigmoid_head": (b_ms, b_plain, b_dev,
-                              bound(n * INIT_NB * 2 + INIT_NB * 2 + n * 4, 2 * INIT_NB * n)),
+                              bound(n * INIT_NB * 2 + INIT_NB * 2 + n * 4, 2 * INIT_NB * n),
+                              None),
         # u8 in, f32 out; ~6 operations a pixel (bin, subtract, divide, clip)
-        "percentile_normalize_u8": (p_ms, p_plain, p_dev, bound(n * 5, 6 * n)),
+        "percentile_normalize_u8": (p_ms, p_plain, p_dev, bound(n * 5, 6 * n), None),
         # x read, dx written (bf16), g and p read (f32), taps and dw; a
         # multiply for dx and a multiply-add for dw per element
         "diff_sigmoid_head_backward": (bb_ms, bb_plain, bb_dev, bound(
-            2 * nt * INIT_NB * 2 + 2 * nt * 4 + 2 * INIT_NB * 2 + 4, 3 * nt * INIT_NB + 3 * nt)),
+            2 * nt * INIT_NB * 2 + 2 * nt * 4 + 2 * INIT_NB * 2 + 4, 3 * nt * INIT_NB + 3 * nt),
+            None),
         # f32 in and out, no arithmetic
         "d4_transform_batch": (d_ms, d_plain, d_dev,
-                               bound(2 * TRAIN_BATCH * SIZE * SIZE * 4 + TRAIN_BATCH * 4, 0)),
+                               bound(2 * TRAIN_BATCH * SIZE * SIZE * 4 + TRAIN_BATCH * 4, 0), None),
+        # bf16 in and out, no arithmetic
+        "ident_hwbc": (i_ms, i_plain, i_dev, bound(i_bytes, 0), i_lib),
     }
 
 
 # The path whose run gives each kernel's "launches": the newest that runs it.
 MAIN_PATH = {"fused_zscore_normalize": "cascade", "diff_sigmoid_head": "train_fast_head",
              "percentile_normalize_u8": "train", "diff_sigmoid_head_backward": "train_fast_head",
-             "d4_transform_batch": "train"}
+             "d4_transform_batch": "train", "ident_hwbc": "layout_probe"}
 
 
 def main() -> int:
@@ -970,7 +1100,8 @@ def main() -> int:
             "diff_sigmoid_head": phase_head(dev, g),
             "percentile_normalize_u8": phase_percentile(dev, g),
             "d4_transform_batch": phase_d4(dev, g),
-            "diff_sigmoid_head_backward": phase_head_backward(dev, g)}
+            "diff_sigmoid_head_backward": phase_head_backward(dev, g),
+            "ident_hwbc": phase_ident(dev, g)}
     torch.cuda.empty_cache()
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -987,12 +1118,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
     torch.cuda.empty_cache()
+    paths["layout_probe"] = phase_layout_probe(dev, smi)
+    torch.cuda.empty_cache()
     times = phase_kernel_timing(dev, g, smi)
     for name, path in MAIN_PATH.items():
         if paths[path][name] < 1:
             raise AssertionError(f"{name} was not launched on its path {path}: {paths[path]}")
-    # No single PyTorch call computes any of the five functions (library_ms
-    # null): see PERF.md.
+    # One PyTorch call computes kernel I's function (clone); none computes
+    # any of the other five (library_ms null): see PERF.md.
     print(f"total: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1000,7 +1133,7 @@ def main() -> int:
          "launches_by_path": {path: counts[name] for path, counts in paths.items()},
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
          "device_ms": times[name][2], "bound_ms": times[name][3][0],
-         "bound_by": times[name][3][1], "library_ms": None}
+         "bound_by": times[name][3][1], "library_ms": times[name][4]}
         for name, (_, _, src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -36,15 +36,16 @@ _SIGNATURES = {
     # device, x, x_bf16, w, bias, out, npix, channels, stream
     "adipose_sigmoid_head": (_I, _P, _I, _P, _P, _P, _LL, _I, _P),
     # device, x, x_bf16, w, g, p, dx, partial, partial_rows, dw, dbias, npix,
-    # channels, stream
-    "adipose_sigmoid_head_bwd": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _P),
+    # channels, period, block_x, block_y, stream
+    "adipose_sigmoid_head_bwd": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
+                                 _I, _P),
     # device, x, in_u8, hist, low_scale, out, batch, n, rank_lo, frac_lo,
     # rank_hi, frac_hi, stream
     "adipose_percentile": (_I, _P, _I, _P, _P, _P, _I, _LL, _F, _F, _F, _F, _P),
     # device, x, ids, out, batch, n, stream
     "adipose_d4": (_I, _P, _P, _P, _I, _I, _P),
-    # device, x, out, n_h, n_w, n_b, n_c, s_h, s_w, s_b, s_c, stream
-    "adipose_layout_ident": (_I, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    # device, x, out, run_len, vec, stream
+    "adipose_layout_ident": (_I, _P, _P, _LL, _I, _P),
 }
 
 

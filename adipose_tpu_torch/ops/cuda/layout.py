@@ -3,11 +3,13 @@ CUDA kernel and plain version.
 
 Replaces the TPU kernel ``pallas_ident_hwbc`` (``scripts/exp_layout_probe.py:37``,
 body ``ident_kernel``), which the layout probe puts between two convs on the
-(H, W, B, C) view of a conv activation. The kernel is ``csrc/layout.cu``: one
-block per h, as the Pallas grid, copying its (W, B, C) slab by the input's
-strides with 16-byte vectors along C where a row is aligned. The output has
-the input's strides, so the permuted channels-last activation of a cuDNN
-conv comes out in the same byte order and the next conv takes it as it is.
+(H, W, B, C) view of a conv activation. The kernel is ``csrc/layout.cu``.
+:func:`ident_plan` makes its launch plan on the host from the shape and the
+strides: the dimensions folded by stride into one run, copied in 16-byte
+vectors where both tensors start 16-byte aligned and element by element
+otherwise. Each thread of a grid that covers the run copies one vector. The output has the input's strides,
+so the permuted channels-last activation of a cuDNN conv comes out in the
+same byte order and the next conv takes it as it is.
 
 The plain version, ``torch.empty_like(t).copy_(t)``, is also the one library
 call that computes the same function; its time is the kernel's yardstick.
@@ -17,6 +19,8 @@ launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,17 +33,55 @@ def ident_hwbc_plain(t: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(t).copy_(t)
 
 
+class IdentPlan(NamedTuple):
+    """How kernel I copies one dense tensor: one run of ``run_len``
+    elements, as whole vectors of ``vec`` elements (8, 16 bytes; or 1), then
+    ``tail`` single elements."""
+    run_len: int
+    vec: int
+    tail: int
+
+
+def coalesce(shape, strides) -> list[tuple[int, int]]:
+    """``(size, stride)`` dimensions that reach the same element offsets as
+    ``shape`` and ``strides``, folded as PyTorch's TensorIterator folds them:
+    size-1 dimensions dropped, the rest sorted by stride, and each one whose
+    stride is the size times the stride of the one inside it merged into it.
+    Innermost first; a tensor of one element is ``[(1, 1)]``."""
+    merged: list[tuple[int, int]] = []
+    for size, stride in sorted(((n, s) for n, s in zip(shape, strides) if n != 1),
+                               key=lambda d: d[1]):
+        if merged and stride == merged[-1][0] * merged[-1][1]:
+            merged[-1] = (merged[-1][0] * size, merged[-1][1])
+        else:
+            merged.append((size, stride))
+    return merged or [(1, 1)]
+
+
+def ident_plan(shape, strides, x_addr: int, out_addr: int) -> IdentPlan:
+    """Kernel I's plan for a bf16 tensor of ``shape`` and ``strides``
+    (elements) at byte address ``x_addr``, copied to ``out_addr`` with the
+    same strides.
+
+    The dimensions must fold into one run of stride 1, as every dense tensor
+    does. The run goes in 16-byte vectors where both addresses are 16-byte
+    aligned (the output, a fresh allocation, always is), element by element
+    where the input is not."""
+    runs = coalesce(shape, strides)
+    if len(runs) != 1 or runs[0][1] != 1:
+        raise ValueError(f"ident_plan: shape {tuple(shape)} and strides {tuple(strides)} fold "
+                         f"into {runs}, not one run of stride 1")
+    n = runs[0][0]
+    vec = 8 if (x_addr | out_addr) % 16 == 0 else 1
+    return IdentPlan(n, vec, n % vec)
+
+
 def _dense(t: torch.Tensor) -> bool:
     """Whether ``t``'s elements fill its span of memory once each, in some
-    order of its dimensions (non-overlapping and dense)."""
-    expected = 1
-    for size, stride in sorted(zip(t.shape, t.stride()), key=lambda p: p[1]):
-        if size == 1:
-            continue
-        if stride != expected:
-            return False
-        expected *= size
-    return True
+    order of its dimensions (non-overlapping and dense): whether they fold
+    into one run of stride 1."""
+    runs = coalesce(t.shape, t.stride())
+    return len(runs) == 1 and runs[0][1] == 1
 
 
 def ident_hwbc(t: torch.Tensor) -> torch.Tensor:
@@ -71,9 +113,10 @@ def ident_hwbc(t: torch.Tensor) -> torch.Tensor:
     if any(a != b for a, b, n in zip(out.stride(), t.stride(), t.shape) if n > 1):
         raise RuntimeError(f"ident_hwbc: empty_like gave strides {out.stride()} for "
                            f"{t.stride()}")
+    plan = ident_plan(t.shape, t.stride(), t.data_ptr(), out.data_ptr())
     index, stream = build.launch_target(t.device)
-    code = build.library().adipose_layout_ident(index, t.data_ptr(), out.data_ptr(), *t.shape,
-                                                *t.stride(), stream)
+    code = build.library().adipose_layout_ident(index, t.data_ptr(), out.data_ptr(),
+                                                plan.run_len, plan.vec, stream)
     build.check(code, "ident_hwbc")
     ident_hwbc.launches += 1
     return out

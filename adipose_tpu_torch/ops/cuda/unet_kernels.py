@@ -8,9 +8,12 @@ kernels are in ``csrc/unet_kernels.cu`` and are bound by device memory: the
 forward reads every channel of the full-resolution activation once for two
 operations each, the backward reads it and writes its gradient. The forward
 stages each block's contiguous channels-last span in shared memory with
-16-byte loads and reduces one pixel per thread; the backward writes dx as
-the same span and reduces dw and dbias through per-block partials in a fixed
-order. The source's header says more.
+16-byte loads and reduces one pixel per thread. The backward streams x in
+16-byte vectors straight into registers, with a block and grid stride of
+whole channel periods so that each thread keeps the same channels' dw sums in
+registers (:func:`head_bwd_plan` makes its plan, and sends shapes the period
+path does not take to a general kernel), and reduces dw and dbias through
+per-block partials in a fixed order. The source's header says more.
 
 :func:`diff_sigmoid_head` is differentiable: a ``torch.autograd.Function``
 whose forward is the head kernel and whose backward is the backward kernel.
@@ -21,12 +24,49 @@ launches the kernel or raises: there is no fallback.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from adipose_tpu_torch.ops.cuda import build
 
 _DTYPES = (torch.bfloat16, torch.float32)
-_BWD_PARTIAL_ROWS = 1024  # the backward kernel's most blocks (csrc kBwdMaxBlocks)
+# The backward's most blocks (csrc kBwdMaxBlocks): its grid is as many blocks
+# as fit on the card at once, 132 SMs x at most 8 blocks on an H100, capped here.
+_BWD_PARTIAL_ROWS = 1024
+
+
+class HeadBwdPlan(NamedTuple):
+    """How the head backward kernel runs. ``path`` "period": 16-byte vectors
+    of ``vec`` elements, whose channels repeat every ``period`` vectors, and
+    blocks of ``block[0]`` threads, a multiple of 32 and of the period;
+    "general": one thread per column and pixel lane, blocks of ``block``
+    (columns, pixel lanes), ``vec`` 1 and ``period`` 0."""
+    path: str
+    vec: int
+    period: int
+    block: tuple[int, int]
+
+
+def head_bwd_plan(channels: int, itemsize: int, x_addr: int, dx_addr: int) -> HeadBwdPlan:
+    """The backward kernel's plan for ``channels`` channels of ``itemsize``
+    bytes, x at byte address ``x_addr`` and dx at ``dx_addr``.
+
+    The period path takes every C whose period ``C / gcd(C, V)`` vectors
+    has a least common multiple with 32 of at most 1024 (a block's most
+    threads) and whose vectors span at most two pixels (``V <= C + 1``), with
+    both tensors 16-byte aligned; its block is that multiple, repeated up to
+    256 threads. Everything else takes the general path: a block of 256
+    threads, the columns (C and dbias) rounded up to a warp across, at most
+    256."""
+    vec = 16 // itemsize
+    period = channels // math.gcd(channels, vec)
+    base = math.lcm(period, 32)
+    if base <= 1024 and vec <= channels + 1 and (x_addr | dx_addr) % 16 == 0:
+        return HeadBwdPlan("period", vec, period, (base * max(1, 256 // base), 1))
+    cols = min(-(-(channels + 1) // 32) * 32, 256)
+    return HeadBwdPlan("general", 1, 0, (cols, 256 // cols))
 
 
 def diff_sigmoid_head_plain(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
@@ -109,11 +149,12 @@ def diff_sigmoid_head_backward(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor
     partial = torch.empty((_BWD_PARTIAL_ROWS, c + 1), dtype=torch.float32, device=dev)
     dw = torch.empty_like(w)
     dbias = torch.empty((), dtype=torch.float32, device=dev)
+    plan = head_bwd_plan(c, x.element_size(), x.data_ptr(), dx.data_ptr())
     index, stream = build.launch_target(dev)
     code = build.library().adipose_sigmoid_head_bwd(
         index, x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), g.data_ptr(),
         p.data_ptr(), dx.data_ptr(), partial.data_ptr(), _BWD_PARTIAL_ROWS, dw.data_ptr(),
-        dbias.data_ptr(), b * h * wd, c, stream)
+        dbias.data_ptr(), b * h * wd, c, plan.period, *plan.block, stream)
     build.check(code, "diff_sigmoid_head_backward")
     diff_sigmoid_head_backward.launches += 1
     return dx, dw, dbias

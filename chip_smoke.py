@@ -18,11 +18,16 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      the inverse ids restore the input
   5c. kernel B' (head backward) against its plain version at the training
      path's head shapes (batch 2; C = 44, 176, 88; bf16, and f32 at C = 44),
-     and the autograd Function against plain autograd
+     at batch 8, and on the general path (C = 37, whose channel period is
+     too long for the period path; an x that is not 16-byte aligned) and a
+     pixel count that ends inside a period; each case's path printed; then
+     the autograd Function against plain autograd
   5d. kernel I (identity on the (H, W, B, C) view) bit-equal to its plain
      version, strides kept, on the probe's view of a channels-last
      (16, 64, 1024, 1024) bf16 activation, a contiguous (1024, 1024, 16, 64)
-     tensor and (64, 1000, 3, 44), whose C rows take the scalar tail
+     tensor, (64, 1000, 3, 44), the odd (7, 9, 3, 5) with a scalar tail, and
+     a view that starts 1 element into its storage (element by element);
+     each case's plan printed
   6. slice   a seeded init_nb=44 checkpoint loaded through the port's
      ``_load_segmenter``, requests of 16 distinct 1024^2 uint8 tiles
      answered through ``segment_batch``, checked against the same model run
@@ -48,7 +53,8 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
  10. timing  CUDA events, after warmup, on distinct batches, in turns with
      the plain versions; device time per call from torch.profiler; train
      step and augmentation at batch 2 and 8, and the device's idle share
-     over one epoch
+     over one epoch; kernels I and B' beside clone, their bounds and their
+     previous designs' times
 Then one JSON line with every kernel's launches, error, times and bound, and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -81,12 +87,12 @@ from adipose_tpu_torch.ops.cuda.percentile import (percentile_normalize_u8,
 from adipose_tpu_torch.ops.cuda.preprocess import (fused_zscore_normalize,
                                                    fused_zscore_normalize_plain)
 from adipose_tpu_torch.ops.cuda.d4 import d4_transform_batch, d4_transform_batch_plain
-from adipose_tpu_torch.ops.cuda.layout import ident_hwbc, ident_hwbc_plain
+from adipose_tpu_torch.ops.cuda.layout import ident_hwbc, ident_hwbc_plain, ident_plan
 from adipose_tpu_torch.ops.cuda.unet_kernels import (diff_sigmoid_head,
                                                      diff_sigmoid_head_backward,
                                                      diff_sigmoid_head_backward_plain,
                                                      diff_sigmoid_head_forward,
-                                                     diff_sigmoid_head_plain)
+                                                     diff_sigmoid_head_plain, head_bwd_plan)
 from adipose_tpu_torch.ops.d4 import INVERSE_IDS
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
 from adipose_tpu_torch.models.convert import load_flax_npz
@@ -127,6 +133,9 @@ HEAD_BWD_DBIAS_RTOL = 1e-5
 # The Function vs plain autograd at f32: torch's sigmoid backward rounds
 # g * (1 - p) * p in another order, and its matmul sums in another order.
 HEAD_AUTOGRAD_RTOL = 1e-5
+# The previous designs' device times of kernels I and B' at the timing
+# shapes, for reference (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
+PREVIOUS_DESIGN_MS = {"ident_hwbc": 1.5561, "diff_sigmoid_head_backward": 0.3249}
 # H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel's work.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -358,23 +367,35 @@ def phase_d4(dev, g) -> float:
 
 
 def phase_head_backward(dev, g) -> float:
-    """Kernel B' vs plain at the training path's head shapes (batch 2):
-    dx bit-equal, dw and dbias to their bounds, two runs bit-equal; then the
-    autograd Function against plain autograd at f32."""
+    """Kernel B' vs plain at the training path's head shapes (batch 2), at
+    batch 8, and on the shapes that take the general path or end inside a
+    channel period: dx bit-equal, dw and dbias to their bounds, two runs
+    bit-equal; then the autograd Function against plain autograd at f32."""
     worst = 0.0
-    shapes = [(INIT_NB, SIZE, torch.bfloat16), (4 * INIT_NB, SIZE // 4, torch.bfloat16),
-              (2 * INIT_NB, SIZE // 2, torch.bfloat16), (INIT_NB, SIZE, torch.float32)]
-    for c, s, dtype in shapes:
-        x = torch.randn((TRAIN_BATCH, s, s, c), device=dev, generator=g).relu_()
-        x = x.to(dtype).permute(0, 3, 1, 2)  # channels-last (B, C, H, W)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (batch, C, H, W, dtype, elements of storage before x)
+    shapes = [(TRAIN_BATCH, INIT_NB, SIZE, SIZE, bf16, 0),
+              (TRAIN_BATCH, 4 * INIT_NB, SIZE // 4, SIZE // 4, bf16, 0),
+              (TRAIN_BATCH, 2 * INIT_NB, SIZE // 2, SIZE // 2, bf16, 0),
+              (TRAIN_BATCH, INIT_NB, SIZE, SIZE, f32, 0),
+              (8, INIT_NB, SIZE, SIZE, bf16, 0),  # the batch-8 training step's main head
+              (TRAIN_BATCH, 37, SIZE // 2, SIZE // 2, bf16, 0),  # period 37: general path
+              (TRAIN_BATCH, INIT_NB, SIZE // 2, SIZE // 2, bf16, 1),  # x unaligned: general
+              (1, INIT_NB, 999, 1001, bf16, 0)]  # odd pixel count: ends inside a period
+    for b, c, h, wd, dtype, offset in shapes:
+        x = torch.randn((offset + b * h * wd * c,), device=dev, generator=g).relu_().to(dtype)
+        x = x[offset:].view(b, h, wd, c).permute(0, 3, 1, 2)  # channels-last (B, C, H, W)
         w = (torch.randn(c, device=dev, generator=g) / c ** 0.5).to(dtype)
         p = diff_sigmoid_head_forward(x, w, torch.tensor(0.1, device=dev))
-        gr = torch.randn((TRAIN_BATCH, s, s), device=dev, generator=g)
+        gr = torch.randn((b, h, wd), device=dev, generator=g)
         dxk, dwk, dbk = diff_sigmoid_head_backward(x, w, p, gr)
         dxk2, dwk2, dbk2 = diff_sigmoid_head_backward(x, w, p, gr)
         dxp, dwp, dbp = diff_sigmoid_head_backward_plain(x, w, p, gr)
         torch.cuda.synchronize()
-        case = f"({TRAIN_BATCH},{c},{s},{s}) {dtype}"
+        plan = head_bwd_plan(c, x.element_size(), x.data_ptr(), dxk.data_ptr())
+        case = (f"({b},{c},{h},{wd}) {dtype}{f' {offset} element in' if offset else ''}, "
+                f"{plan.path} path" + (f" (period {plan.period}, block {plan.block[0]})"
+                                       if plan.path == "period" else ""))
         if dxk.shape != x.shape or not dxk.is_contiguous(memory_format=torch.channels_last):
             raise AssertionError(f"diff_sigmoid_head_backward {case}: dx shape/layout")
         if not torch.equal(bits(dxk), bits(dxp)):
@@ -398,7 +419,7 @@ def phase_head_backward(dev, g) -> float:
               f"{dw_bound:.3g}{' + one bf16 step' if dtype == torch.bfloat16 else ''}), "
               f"dbias rel err {db_rel:.3g} (bound {HEAD_BWD_DBIAS_RTOL})")
         del x, p, gr, dxk, dxk2, dxp
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     # The autograd Function (kernels B and B') against plain autograd at f32.
     x = torch.randn((2, 16, 24, 8), device=dev, generator=g).permute(0, 3, 1, 2)
@@ -421,15 +442,27 @@ def phase_head_backward(dev, g) -> float:
 
 def phase_ident(dev, g) -> float:
     """Kernel I vs plain: bit-equal, strides kept, on the probe's view, a
-    contiguous (H, W, B, C) tensor and an odd shape with a scalar tail."""
+    contiguous (H, W, B, C) tensor, odd shapes with a scalar tail, and a
+    view that starts inside a 16-byte line."""
     def normal(*shape):
         return torch.randn(shape, device=dev, generator=g, dtype=torch.bfloat16)
+
+    def starting_at(offset, shape, order):
+        """A (H, W, B, C) view, its dimensions stored in ``order``, whose
+        storage holds ``offset`` elements before it."""
+        stored = [shape[d] for d in order]
+        flat = normal(offset + math.prod(shape))[offset:]
+        return flat.view(stored).permute(*[order.index(d) for d in range(4)])
 
     b, s, c = probe.BATCH, probe.SIZE, probe.CHANNELS
     cases = [(f"({s},{s},{b},{c}) view of a channels-last ({b},{c},{s},{s})",
               lambda: normal(b, s, s, c).permute(1, 2, 0, 3)),
              (f"({s},{s},{b},{c}) contiguous", lambda: normal(s, s, b, c)),
-             ("(64,1000,3,44) contiguous", lambda: normal(64, 1000, 3, 44))]
+             ("(64,1000,3,44) contiguous", lambda: normal(64, 1000, 3, 44)),
+             ("(7,9,3,5) contiguous", lambda: normal(7, 9, 3, 5)),
+             ("(64,64,16,64) view of a channels-last (16,64,64,64) 1 element in",
+              lambda: starting_at(1, (64, 64, 16, 64), (2, 0, 1, 3)))]
+    plans = []
     for case, make in cases:
         t = make()
         k = ident_hwbc(t)
@@ -439,10 +472,12 @@ def phase_ident(dev, g) -> float:
             raise AssertionError(f"ident_hwbc {case}: strides {k.stride()}, input {t.stride()}")
         if not (torch.equal(bits(k), bits(plain)) and torch.equal(bits(k), bits(t))):
             raise AssertionError(f"ident_hwbc {case}: not bit-equal to plain and the input")
+        plan = ident_plan(t.shape, t.stride(), t.data_ptr(), k.data_ptr())
+        plans.append(f"{case} (run {plan.run_len}, vector {plan.vec}, tail {plan.tail})")
         del t, k, plain
     torch.cuda.empty_cache()
-    print(f"kernel ident_hwbc {'; '.join(case for case, _ in cases)} bf16: bit-equal to plain "
-          f"and to the input, strides kept")
+    print(f"kernel ident_hwbc bf16: bit-equal to plain and to the input, strides kept, on "
+          + "; ".join(plans))
     return 0.0
 
 
@@ -1027,9 +1062,17 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
     bb_ms, bb_plain = in_turns(lambda c: diff_sigmoid_head_backward_plain(xt, w, pt, c), bwd,
                                cot, 10)
     bb_dev = profiled_ms(bwd, cot, 10, ("head_bwd_kernel", "head_bwd_finalize"))
-    print(f"timing diff_sigmoid_head_backward ({TRAIN_BATCH},{INIT_NB},{SIZE},{SIZE}) bf16: "
-          f"kernel {bb_ms:.4f} ms, plain {bb_plain:.4f} ms by CUDA events; device time "
-          f"{bb_dev} ms per call by torch.profiler [{smi}]")
+    # x read, dx written (bf16), g and p read (f32), taps and dw; a multiply
+    # for dx and a multiply-add for dw per element
+    bb_bound = bound(2 * nt * INIT_NB * 2 + 2 * nt * 4 + 2 * INIT_NB * 2 + 4,
+                     3 * nt * INIT_NB + 3 * nt)
+    plan = head_bwd_plan(INIT_NB, 2, xt.data_ptr(), 0)  # dx: a fresh, aligned allocation
+    print(f"timing diff_sigmoid_head_backward ({TRAIN_BATCH},{INIT_NB},{SIZE},{SIZE}) bf16, "
+          f"{plan.path} path: kernel {bb_ms:.4f} ms, plain {bb_plain:.4f} ms by CUDA events; "
+          f"device time {bb_dev} ms per call by torch.profiler, "
+          f"{100 * bb_bound[0] / bb_dev if bb_dev else 0:.1f}% of its bound "
+          f"{bb_bound[0]:.4f} ms; previous design "
+          f"{PREVIOUS_DESIGN_MS['diff_sigmoid_head_backward']} ms device [{smi}]")
     del xt, pt, cot
 
     # Kernel D at the augmentation's shape: batch 2 of 1024^2 float32.
@@ -1055,8 +1098,9 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
     i_bytes = 2 * views[0].numel() * views[0].element_size()
     print(f"timing ident_hwbc {tuple(views[0].shape)} bf16 view of a channels-last activation: "
           f"kernel {i_ms:.4f} ms, plain (empty_like + copy_) {i_plain:.4f} ms, clone {i_lib:.4f} "
-          f"ms by CUDA events; device time {i_dev} ms per call by torch.profiler; bound "
-          f"{bound(i_bytes, 0)[0]:.4f} ms [{smi}]")
+          f"ms by CUDA events (kernel / clone {i_ms / i_lib:.4f}); device time {i_dev} ms per "
+          f"call by torch.profiler; bound {bound(i_bytes, 0)[0]:.4f} ms; previous design "
+          f"{PREVIOUS_DESIGN_MS['ident_hwbc']} ms device [{smi}]")
     del views
     n = BATCH * SIZE * SIZE
     return {  # name: (ms, plain ms, device ms, bound, library call ms)
@@ -1068,11 +1112,7 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
                               None),
         # u8 in, f32 out; ~6 operations a pixel (bin, subtract, divide, clip)
         "percentile_normalize_u8": (p_ms, p_plain, p_dev, bound(n * 5, 6 * n), None),
-        # x read, dx written (bf16), g and p read (f32), taps and dw; a
-        # multiply for dx and a multiply-add for dw per element
-        "diff_sigmoid_head_backward": (bb_ms, bb_plain, bb_dev, bound(
-            2 * nt * INIT_NB * 2 + 2 * nt * 4 + 2 * INIT_NB * 2 + 4, 3 * nt * INIT_NB + 3 * nt),
-            None),
+        "diff_sigmoid_head_backward": (bb_ms, bb_plain, bb_dev, bb_bound, None),
         # f32 in and out, no arithmetic
         "d4_transform_batch": (d_ms, d_plain, d_dev,
                                bound(2 * TRAIN_BATCH * SIZE * SIZE * 4 + TRAIN_BATCH * 4, 0), None),

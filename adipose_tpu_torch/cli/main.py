@@ -1,9 +1,9 @@
 """``adipose-torch``: the port's command line.
 
-``adipose-torch segment``, ``adipose-torch pipeline`` and ``adipose-torch
-train-unet`` are ``adipose segment``, ``adipose pipeline`` and ``adipose
-train-unet`` (``adipose_tpu/cli/main.py``) on a torch device, with the same
-flags plus ``--device``. They read and write ``params.npz`` weights (see
+``adipose-torch segment``, ``pipeline``, ``train-unet`` and
+``train-classifier`` are those subcommands of ``adipose``
+(``adipose_tpu/cli/main.py``) on a torch device, with the same flags plus
+``--device``. They read and write ``params.npz`` weights (see
 :mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
@@ -75,7 +75,55 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device; on 'cpu' the kernels' plain versions run")
     pl.set_defaults(func=cmd_pipeline)
     _add_train_unet(sub)
+    _add_train_classifier(sub)
     return parser
+
+
+def _bool(x: str) -> bool:
+    # required-boolean flag style (train_adipose_classifier_v0.py:124)
+    return str(x).lower() in ("1", "true", "yes", "y")
+
+
+def _add_train_classifier(sub) -> None:
+    """``train-classifier``: every flag name and default of ``adipose
+    train-classifier`` plus ``--device``."""
+    tc = sub.add_parser("train-classifier", help="two-phase InceptionV3 classifier")
+    tc.add_argument("--dataset-root", required=True)
+    tc.add_argument("--train-split", default="train")
+    tc.add_argument("--val-split", default="val")
+    tc.add_argument("--pretrained-weights", default=None,
+                    help="by-name transfer from a run or weights dir holding params.npz "
+                         "(train_adipose_classifier_v0.py:322-353; a TF .h5 is not ported yet)")
+    tc.add_argument("--warmup-epochs", type=int, default=6)
+    tc.add_argument("--finetune-epochs", type=int, default=20)
+    tc.add_argument("--batch-size", type=int, default=32)
+    tc.add_argument("--base-lr", type=float, default=1e-3)
+    tc.add_argument("--finetune-lr", type=float, default=1e-4)
+    tc.add_argument("--dropout", type=float, default=0.4)
+    tc.add_argument("--unfreeze-from", default="mixed7")
+    tc.add_argument("--patience", type=int, default=4)
+    tc.add_argument("--label-smoothing", type=float, default=0.1)
+    tc.add_argument("--percentile-norm", type=_bool, default=True)
+    tc.add_argument("--percentile-low", type=float, default=1.0)
+    tc.add_argument("--percentile-high", type=float, default=99.0)
+    tc.add_argument("--use-class-weights", action="store_true")
+    tc.add_argument("--augment-low-res", action="store_true",
+                    help="augment AFTER the 299 resize (opt-in deviation, PARITY.md #15: "
+                         "the reference augments at native resolution)")
+    tc.add_argument("--pos-weight-multiplier", type=float, default=1.0)
+    tc.add_argument("--prep-megabatch", type=int, default=4,
+                    help="accepted for the JAX CLI; no effect on a GPU (the JAX package "
+                         "groups prep dispatches for the TPU; the draws never depend on it)")
+    tc.add_argument("--save-best-only", dest="save_best_only", action="store_true",
+                    default=True)
+    tc.add_argument("--no-save-best-only", dest="save_best_only", action="store_false")
+    tc.add_argument("--checkpoint-dir", default="checkpoints/classifier_runs")
+    tc.add_argument("--suffix", default="")
+    tc.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the run (train_classifier_trace.json)")
+    tc.add_argument("--device", default="cuda",
+                    help="torch device; on 'cpu' the kernels' plain versions run")
+    tc.set_defaults(func=cmd_train_classifier)
 
 
 def _add_train_unet(sub) -> None:
@@ -320,6 +368,34 @@ def cmd_train_unet(args) -> dict:
     with _profiled(args.profile_dir, "train_unet_trace.json"):
         result = trainer.train(resume_from=args.resume_from,
                                pretrained_weights=args.pretrained_weights)
+    print(json.dumps(result, indent=2))
+    return result
+
+
+def cmd_train_classifier(args) -> dict:
+    from adipose_tpu_torch.core.config import ClassifierConfig, TrainConfig
+    from adipose_tpu_torch.train.trainer_classifier import ClassifierTrainer
+
+    cfg = TrainConfig(batch_size=args.batch_size, lr_phase1=args.base_lr,
+                      lr_phase2=args.finetune_lr, percentile_low=args.percentile_low,
+                      percentile_high=args.percentile_high)
+    mcfg = ClassifierConfig(unfreeze_from=args.unfreeze_from, dropout_rate=args.dropout)
+    trainer = ClassifierTrainer(
+        args.dataset_root, cfg, mcfg,
+        label_smoothing=args.label_smoothing,
+        percentile_norm=args.percentile_norm,
+        use_class_weights=args.use_class_weights,
+        pos_weight_multiplier=args.pos_weight_multiplier,
+        checkpoint_root=args.checkpoint_dir, suffix=args.suffix,
+        train_split=args.train_split, val_split=args.val_split,
+        patience=args.patience, save_best_only=args.save_best_only,
+        pretrained_weights=args.pretrained_weights,
+        augment_low_res=args.augment_low_res,
+        prep_megabatch=args.prep_megabatch,
+        device=args.device,
+    )
+    with _profiled(args.profile_dir, "train_classifier_trace.json"):
+        result = trainer.train(args.warmup_epochs, args.finetune_epochs)
     print(json.dumps(result, indent=2))
     return result
 

@@ -1,5 +1,5 @@
-"""Dataclass configs, framework-free: copies of ``UNetConfig`` and
-``TrainConfig`` from ``adipose_tpu/core/config.py``.
+"""Dataclass configs, framework-free: copies of ``UNetConfig``,
+``ClassifierConfig`` and ``TrainConfig`` from ``adipose_tpu/core/config.py``.
 
 ``from_json`` ignores keys it does not know, so a config written by the JAX
 package loads here.
@@ -47,6 +47,17 @@ class UNetConfig(_JsonMixin):
     # backward. Off for training as in the JAX package; inference paths
     # build the model directly with it on.
     fast_head: bool = False
+
+
+@dataclass
+class ClassifierConfig(_JsonMixin):
+    """InceptionV3 + GAP/Dropout/Dense-sigmoid head
+    (``Classification/train_adipose_classifier_v0.py:312-319``)."""
+
+    image_size: int = 299
+    dropout_rate: float = 0.4
+    unfreeze_from: str = "mixed7"  # phase-2 unfreeze point (:493-503)
+    compute_dtype: str = "bfloat16"
 
 
 @dataclass

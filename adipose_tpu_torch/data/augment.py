@@ -1,9 +1,10 @@
-"""Paired image/mask augmentation on the device (``adipose_tpu/data/augment.py``).
+"""Image/mask augmentation on the device (``adipose_tpu/data/augment.py``).
 
 Four tiers (light / moderate / heavy / tta_style) plus ``none``, each a
 uniform D4 transform per sample followed by the tier's "rest" stages: zoom,
-elastic warp, brightness, contrast, gamma, Gaussian blur and noise. Images
-are (B, H, W) float32 in [0, 255]; masks (B, H, W) float32 in {0, 1}.
+elastic warp, brightness, contrast, gamma, Gaussian blur and noise; and the
+classifier's mask-free stage (``classification``, :func:`batched_classification`).
+Images are (B, H, W) float32 in [0, 255]; masks (B, H, W) float32 in {0, 1}.
 
 Every primitive is split in two:
 
@@ -79,6 +80,16 @@ TIER_STAGES = {
     ),
 }
 TIER_STAGES["tta-style"] = TIER_STAGES["tta_style"]  # reference spelling
+# The classifier tiles' stage (_rest_classification, augment.py:310-318);
+# its zoom acts on the image alone.
+TIER_STAGES["classification"] = (
+    Stage("scale", 0.95, 1.05, 0.3),
+    Stage("brightness", 0.9, 1.1, 0.6),
+    Stage("contrast", 0.9, 1.1, 0.6),
+    Stage("gamma", 0.9, 1.1, 0.5),
+    Stage("blur", 0.0, 0.8, 0.15),
+    Stage("noise", 0.0, 5.0, 0.15),
+)
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -173,12 +184,12 @@ def _axis_weights(src: torch.Tensor, n: int, order: int) -> torch.Tensor:
     return (1.0 - d).clamp_min(0.0)
 
 
-def apply_scale(images: torch.Tensor, masks: torch.Tensor, gate: torch.Tensor,
+def apply_scale(images: torch.Tensor, masks: torch.Tensor | None, gate: torch.Tensor,
                 scale: torch.Tensor, prob: float):
     """Center zoom in/out with same-size output where ``gate <= prob``
     (``data.py:72-106``), as the separable resample ``W_y @ X @ W_x^T`` with
     banded tent matrices; zoom-out reflects the image at the borders and
-    zero-fills the mask."""
+    zero-fills the mask. ``masks`` None: the image alone, and None back."""
     _, h, w = images.shape
     dev = images.device
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
@@ -190,10 +201,12 @@ def apply_scale(images: torch.Tensor, masks: torch.Tensor, gate: torch.Tensor,
     wy_img = _axis_weights(_reflect_coords(src_y, h), h, order=1)
     wx_img = _axis_weights(_reflect_coords(src_x, w), w, order=1)
     img_s = wy_img @ images @ wx_img.transpose(1, 2)
+    on = _col(gate <= prob)
+    if masks is None:
+        return torch.where(on, img_s, images), None
     wy_m = _axis_weights(src_y, h, order=0) * in_y[..., None]
     wx_m = _axis_weights(src_x, w, order=0) * in_x[..., None]
     mask_s = wy_m @ masks @ wx_m.transpose(1, 2)
-    on = _col(gate <= prob)
     return torch.where(on, img_s, images), torch.where(on, mask_s, masks)
 
 
@@ -277,10 +290,11 @@ def draw_tier(generator: torch.Generator, tier: str, batch: int, height: int,
     return {"tid": tid, "stages": out}
 
 
-def _rest(stages: tuple, draws: list, images: torch.Tensor, masks: torch.Tensor):
+def _rest(stages: tuple, draws: list, images: torch.Tensor, masks: torch.Tensor | None):
     """A tier's rest stages, in order, on their draws: the JAX package's
-    ``_rest_light``, ``_rest_moderate``, ``_rest_heavy`` and
-    ``_rest_tta_style`` over ``TIER_STAGES``."""
+    ``_rest_light``, ``_rest_moderate``, ``_rest_heavy``, ``_rest_tta_style``
+    and ``_rest_classification`` over ``TIER_STAGES`` (masks None for the
+    last)."""
     for st, d in zip(stages, draws, strict=True):
         if st.kind == "scale":
             images, masks = apply_scale(images, masks, d["gate"], d["value"], st.prob)
@@ -325,3 +339,25 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor, masks: torch
     """Draw and apply ``tier`` over a (B, H, W) float32 batch."""
     b, h, w = images.shape
     return batched_tier(draw_tier(generator, tier, b, h, w), images, masks, tier)
+
+
+def batched_classification(draws: dict, images: torch.Tensor) -> torch.Tensor:
+    """The classifier tiles' augmentation of a (B, N, N) float32 batch on its
+    draws (``draw_tier(generator, "classification", B, N, N)``): the D4
+    stage through the D4 kernel, then the mask-free rest stages
+    (``batched_classification``, ``_classification_stage``)."""
+    images = apply_transform_batch(images, draws["tid"])
+    return _rest(TIER_STAGES["classification"], draws["stages"], images, None)[0]
+
+
+def augment_classification_batch(generator: torch.Generator,
+                                 images: torch.Tensor) -> torch.Tensor:
+    """Draw and apply the classification stage over a (B, N, N) float32 batch."""
+    b, h, w = images.shape
+    return batched_classification(draw_tier(generator, "classification", b, h, w), images)
+
+
+def augment_grayscale_classification(generator: torch.Generator,
+                                     image: torch.Tensor) -> torch.Tensor:
+    """The classification stage of one (N, N) tile (``data.py:342-393``)."""
+    return augment_classification_batch(generator, image[None])[0]

@@ -1,10 +1,11 @@
-"""Host-side tile dataset feeding device batches: a copy of
-``adipose_tpu/data/loader.py`` (``TileDataset``, ``_BoundedCache``,
-``prefetch_batches``); it uses cv2 and numpy only.
+"""Host-side tile datasets feeding device batches: a copy of
+``adipose_tpu/data/loader.py`` (``TileDataset``, ``ClassificationDataset``,
+``_BoundedCache``, ``prefetch_batches``); it uses cv2 and numpy only.
 
-Dataset layout ``<build>/dataset/{train,val,test}/{images,masks}``:
+Segmentation layout ``<build>/dataset/{train,val,test}/{images,masks}``:
 grayscale ``*.jpg``/``*.png`` tiles paired by stem with ``*.tif``/``*.tiff``/
-``*.png`` masks; a byte-budgeted RAM cache of uint8 tiles; the epoch order
+``*.png`` masks. Classification layout ``<split>/{adipose,not_adipose}/*.jpg``,
+labels 1 and 0. A byte-budgeted RAM cache of uint8 tiles; the epoch order
 from ``np.random.RandomState(seed + epoch)``, so the port's batch order is
 the JAX package's; short final batches repeat their last element. The host
 decodes and caches uint8 tiles only: augmentation and normalization run on
@@ -197,3 +198,59 @@ class TileDataset:
             # thread-parallel decode (order-preserving); cv2 releases the GIL
             imgs, masks = zip(*self._decode_pool().map(self.load_pair, batch_idx))
             yield np.stack(imgs), np.stack(masks)
+
+
+class ClassificationDataset:
+    """Keras-style class-folder dataset: ``<split>/{adipose,not_adipose}/*.jpg``
+    (``Classification/train_adipose_classifier_v0.py:135-150``), positives
+    first, each class sorted; yields (uint8 (B, H, W), float32 (B,) labels)."""
+
+    def __init__(self, split_dir: str | Path, batch_size: int,
+                 seed: int | None = None, cache_limit_mb: int = 4096):
+        self.split_dir = Path(split_dir)
+        self.batch_size = batch_size
+        self.seed = get_project_seed() if seed is None else seed
+        pos = sorted((self.split_dir / "adipose").glob("*.jpg"))
+        neg = sorted((self.split_dir / "not_adipose").glob("*.jpg"))
+        self.files = pos + neg
+        self.labels = np.array([1] * len(pos) + [0] * len(neg), np.float32)
+        self._cache = _BoundedCache(max(0, cache_limit_mb) << 20)
+        self._pool: ThreadPoolExecutor | None = None
+
+    def _decode_pool(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=io_workers(), thread_name_prefix="cls-decode",
+            )
+        return self._pool
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, (len(self.files) + self.batch_size - 1) // self.batch_size)
+
+    def class_counts(self) -> tuple:
+        n_pos = int(self.labels.sum())
+        return n_pos, len(self.labels) - n_pos
+
+    def load(self, idx: int) -> np.ndarray:
+        if idx in self._cache:
+            return self._cache.get(idx)
+        img = _imread_gray(self.files[idx])
+        self._cache.put(idx, img)
+        return img
+
+    def epoch_batches(self, epoch: int, shuffle: bool = True) -> Iterator[tuple]:
+        """The epoch's batches in the order of ``RandomState(seed + epoch)``;
+        a short final batch repeats its last index."""
+        indices = np.arange(len(self.files))
+        if shuffle:
+            np.random.RandomState(self.seed + epoch).shuffle(indices)
+        for i in range(0, len(indices), self.batch_size):
+            batch_idx = list(indices[i : i + self.batch_size])
+            while len(batch_idx) < self.batch_size:
+                batch_idx.append(batch_idx[-1])
+            imgs = np.stack(list(self._decode_pool().map(self.load, batch_idx)))
+            yield imgs, self.labels[batch_idx]

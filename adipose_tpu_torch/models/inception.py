@@ -1,5 +1,5 @@
 """InceptionV3 tile classifier (``adipose_tpu/models/inception.py``) in
-PyTorch, for inference.
+PyTorch, for inference and two-phase fine-tuning.
 
 The reference classifier is Keras ``InceptionV3(include_top=False)`` ->
 GlobalAveragePooling -> Dropout(0.4) -> Dense(1, sigmoid)
@@ -13,7 +13,15 @@ the JAX module:
   pools    3x3/2 VALID max-pool; 3x3/1 SAME average pool that divides by
            the number of valid cells (``count_include_pad=False``, as Keras
            and the JAX module do).
-  head     global average pool and Dense(2048 -> 1) in float32, sigmoid.
+  head     global average pool, Dropout(0.4) in training, and Dense(2048 ->
+           1) in float32, sigmoid.
+
+Training (``forward(x, train=True, frozen_below=k)``) is explicit, as in the
+JAX module, never ``module.train()``: ConvBN ``i >= k`` normalizes with the
+batch statistics and returns its updated running statistics (Flax's
+``BatchNorm(momentum=0.99)``: the biased variance ``max(0, E[x^2] - E[x]^2)``,
+``ra <- 0.99 ra + 0.01 batch``); ConvBN ``i < k`` runs in inference mode
+and keeps its statistics, as Keras runs a ``trainable=False`` BatchNorm.
 
 Every strided conv and pool is VALID; stride-1 convs are SAME. Activations
 are NCHW tensors in ``torch.channels_last`` memory, so cuDNN runs NHWC.
@@ -29,8 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adipose_tpu_torch.models.unet import lecun_normal_
+
 _CL = torch.channels_last
 NUM_CONVS = 94
+BN_MOMENTUM = 0.99
+BN_EPSILON = 1e-3
 
 
 def _topology(x, cbn, avg_pool, max_pool, cat):
@@ -87,7 +99,8 @@ class _Conv(nn.Module):
 
 
 class _BatchNorm(nn.Module):
-    """Inference BatchNorm without scale: ``(x - mean) * rsqrt(var + eps) + bias``."""
+    """BatchNorm without scale: ``(x - mean) * rsqrt(var + eps) + bias``
+    with the running statistics, or in training with the batch's."""
 
     def __init__(self, c: int, device=None):
         super().__init__()
@@ -95,14 +108,25 @@ class _BatchNorm(nn.Module):
         self.register_buffer("mean", torch.empty(c, device=device))
         self.register_buffer("var", torch.empty(c, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + 1e-3)
-        return (x - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """(normalized x, None), or in training (normalized x, (updated
+        running mean, updated running var)); x is float32 (B, C, H, W)."""
+        if not train:
+            mean, var, stats = self.mean, self.var, None
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                stats = (BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean,
+                         BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPSILON)
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None], stats
 
 
 class ConvBN(nn.Module):
     """Conv (no bias) -> BatchNorm (f32, no scale, eps 1e-3) -> ReLU, the
-    Keras ``conv2d_bn``."""
+    Keras ``conv2d_bn``; returns (output, updated running statistics or
+    None)."""
 
     def __init__(self, cin: int, features: int, kh: int, kw: int, stride: int = 1,
                  valid: bool = False, device=None):
@@ -112,10 +136,11 @@ class ConvBN(nn.Module):
         self.stride = stride
         self.padding = (0, 0) if valid else (kh // 2, kw // 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False):
         w = self.conv.weight.to(x.dtype, memory_format=_CL)
         y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
-        return F.relu(self.bn(y.to(torch.float32))).to(x.dtype)
+        y, stats = self.bn(y.to(torch.float32), train)
+        return F.relu(y).to(x.dtype), stats
 
 
 def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:
@@ -151,15 +176,24 @@ class InceptionV3(nn.Module):
             setattr(self, f"cbn_{i}", ConvBN(*shape, device=device))
         assert len(shapes) == NUM_CONVS
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_below: int = 0):
+        """The features; in training ``(features, stats)``, where ``stats``
+        maps ``cbn_<i>.bn.{mean,var}`` to the updated running statistics of
+        each ConvBN ``i >= frozen_below``."""
         index = iter(range(NUM_CONVS))
+        stats = {}
 
         def cbn(y, *_shape):
-            return getattr(self, f"cbn_{next(index)}")(y)
+            i = next(index)
+            y, new = getattr(self, f"cbn_{i}")(y, train and i >= frozen_below)
+            if new is not None:
+                stats[f"cbn_{i}.bn.mean"], stats[f"cbn_{i}.bn.var"] = new
+            return y
 
         x = x.to(self.compute_dtype).contiguous(memory_format=_CL)
-        return _topology(x, cbn, _avg_pool_same, _max_pool_valid,
-                         lambda ys: torch.cat(ys, dim=1))
+        feats = _topology(x, cbn, _avg_pool_same, _max_pool_valid,
+                          lambda ys: torch.cat(ys, dim=1))
+        return (feats, stats) if train else feats
 
 
 class InceptionV3Classifier(nn.Module):
@@ -193,8 +227,95 @@ class InceptionV3Classifier(nn.Module):
             head.bias.fill_(0.1)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.backbone(x.permute(0, 3, 1, 2))
+    def init_flax(self, generator: torch.Generator) -> "InceptionV3Classifier":
+        """Flax's initialization of the JAX module, drawn from ``generator``
+        in creation order: lecun_normal conv and Dense kernels, zero biases,
+        running mean 0 and variance 1."""
+        with torch.no_grad():
+            for i in range(NUM_CONVS):
+                m = getattr(self.backbone, f"cbn_{i}")
+                lecun_normal_(m.conv.weight, generator)
+                m.bn.bias.zero_()
+                m.bn.mean.zero_()
+                m.bn.var.fill_(1.0)
+            lecun_normal_(self.adipose_score.weight, generator)
+            self.adipose_score.bias.zero_()
+        return self
+
+    def _dropout(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """Flax ``nn.Dropout`` in training: keep where ``uniform < 1 - rate``,
+        scaled by 1 / (1 - rate); the identity at rate 0."""
+        if self.dropout_rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("InceptionV3Classifier in training needs a generator for dropout")
+        keep_prob = 1.0 - self.dropout_rate
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), device=x.device))
+
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_below: int = 0,
+                generator: torch.Generator | None = None):
+        """(B,) probabilities; in training ``(probabilities, stats)`` as the
+        JAX module's ``apply(..., train=True, mutable=["batch_stats"])``
+        gives them: ``stats`` maps each updated ``backbone.cbn_<i>.bn.{mean,
+        var}`` state-dict name to its new running statistics. ConvBN
+        ``i < frozen_below`` runs in inference mode; ``generator`` draws the
+        dropout mask."""
+        x = x.permute(0, 3, 1, 2)
+        feats, stats = self.backbone(x, True, frozen_below) if train else (self.backbone(x), {})
         pooled = feats.to(torch.float32).mean(dim=(2, 3))
-        pooled = F.dropout(pooled, self.dropout_rate, self.training)
-        return torch.sigmoid(self.adipose_score(pooled))[:, 0]
+        if train:
+            pooled = self._dropout(pooled, generator)
+        probs = torch.sigmoid(self.adipose_score(pooled))[:, 0]
+        if not train:
+            return probs
+        return probs, {f"backbone.{k}": v for k, v in stats.items()}
+
+
+# The conv index at which each mixed block starts (Keras creation order).
+MIXED_CONV_START = {
+    "mixed0": 5, "mixed1": 12, "mixed2": 19, "mixed3": 26,
+    "mixed4": 30, "mixed5": 40, "mixed6": 50, "mixed7": 60,
+    "mixed8": 70, "mixed9": 76, "mixed10": 85,
+}
+_MIXED_ORDER = [f"mixed{k}" for k in range(11)]
+
+
+def unfreeze_conv_start(unfreeze_from: str | None) -> int:
+    """The first trainable conv index of Keras's ``unfreeze_from_layer``
+    (``train_adipose_classifier_v0.py:361-367``): Keras unfreezes from the
+    layer named 'mixedK', the block's Concatenate, created after the
+    block's own convs. So 'mixed7' unfreezes convs 70.. (mixed8 on), not
+    mixed7's own 60..69; None freezes the whole backbone."""
+    if unfreeze_from is None:
+        return NUM_CONVS
+    k = _MIXED_ORDER.index(unfreeze_from)
+    if k + 1 < len(_MIXED_ORDER):
+        return MIXED_CONV_START[_MIXED_ORDER[k + 1]]
+    return NUM_CONVS
+
+
+def frozen_conv_boundary(unfreeze_from: str | None) -> int:
+    """The ``frozen_below`` of a phase: the conv index below which the
+    backbone's BatchNorms run in inference mode during training."""
+    return unfreeze_conv_start(unfreeze_from)
+
+
+def _conv_index(name: str) -> int | None:
+    seg = next((s for s in name.split(".") if s.startswith("cbn_")), None)
+    return int(seg.split("_")[1]) if seg else None
+
+
+def backbone_param_mask(params, unfreeze_from: str | None = "mixed7") -> dict[str, bool]:
+    """Trainability of each param name of a classifier state dict: the head
+    always trains; phase 1 (``unfreeze_from=None``) freezes the whole
+    backbone, phase 2 trains the convs from :func:`unfreeze_conv_start`."""
+    start = unfreeze_conv_start(unfreeze_from)
+    mask = {}
+    for name in params:
+        if not name.startswith("backbone."):
+            mask[name] = True
+        else:
+            idx = _conv_index(name)
+            mask[name] = unfreeze_from is not None and (NUM_CONVS if idx is None else idx) >= start
+    return mask

@@ -47,6 +47,14 @@ _CL = torch.channels_last
 _TRUNC_STD = 0.87962566103423978
 
 
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's default kernel init, in place: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in (fan_in = the
+    elements of ``w[0]``, for an OIHW conv or an (out, in) Dense weight)."""
+    std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 class Conv(nn.Module):
     """A Keras-named conv layer: float32 OIHW weight and bias, applied in the
     input's dtype with "SAME" padding."""
@@ -62,11 +70,8 @@ class Conv(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun_normal weight and zero bias, as Flax initializes ``nn.Conv``."""
-        fan_in = self.weight[0].numel()
-        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            lecun_normal_(self.weight, generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

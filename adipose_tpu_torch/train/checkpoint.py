@@ -11,6 +11,15 @@ A checkpoint directory keeps the reference's layout
     phase{1,2}_training.log      per-epoch CSV metrics
     training_settings.log        hyperparameters and system capture
 
+and the classifier's (``adipose_tpu/train/trainer_classifier.py``)::
+
+  checkpoints/classifier_runs/<timestamp>_classifier_adipose_sybreosin[_percentile]<suffix>/
+    config.json                  hyperparameters and the class weights
+    training.log                 per-epoch CSV: loss, acc, val_auc, val_acc,
+                                 lr, epoch_time_s (the last phase's rows)
+    weights_best/                the best val AUC of the phase in progress
+    weights_final/               the final model (phase-2 best)
+
 The JAX package writes each weights entry as an orbax checkpoint; the port
 writes and reads ``params.npz`` in the same directory, the Flax param tree as
 numpy, which ``scripts/export_flax_params_npz.py`` writes from the orbax
@@ -64,6 +73,14 @@ def checkpoint_dir_for(checkpoint_name: str, build_timestamp: str | None = None,
                        suffix: str = "_1024_finetune_v3") -> Path:
     """Timestamped run directory (``train_adipose_unet_v3.py:645-652``)."""
     d = Path(root) / f"{build_timestamp or timestamp_now()}_{checkpoint_name}{suffix}"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def classifier_dir_for(root: str | Path, percentile_norm: bool, suffix: str = "") -> Path:
+    """Timestamped classifier run directory, as the JAX trainer names it."""
+    norm = "_percentile" if percentile_norm else ""
+    d = Path(root) / f"{timestamp_now()}_classifier_adipose_sybreosin{norm}{suffix}"
     d.mkdir(parents=True, exist_ok=True)
     return d
 

@@ -9,6 +9,8 @@ inference function (``adipose_tpu/train/state.py``).
   the params left out: they get no update and no moments, as the JAX
   package's ``multi_transform`` with ``set_to_zero`` gives them. A fresh
   optimizer per phase, as Keras recompiles.
+* :func:`classifier_stats_mask`: which BatchNorm running statistics of the
+  classifier may update, from its param mask.
 * The learning rate is a host float, set per epoch by the schedules
   (:func:`set_learning_rate`); each update passes it to the device as a
   kernel argument, so no step waits for the host.
@@ -129,6 +131,22 @@ class TrainState:
 
     def apply_gradients(self, grads: list[torch.Tensor | None]) -> None:
         self.optimizer.step(grads)
+
+
+def _cbn_prefix(name: str) -> tuple[str, ...]:
+    return tuple(s for s in name.split(".") if s.startswith("cbn_") or s == "backbone")
+
+
+def classifier_stats_mask(stats_names, param_mask: dict[str, bool]) -> dict[str, bool]:
+    """The BatchNorm-statistics update mask of the classifier, from its param
+    trainability mask: the statistics of a frozen ConvBN keep their values.
+    This masks only the update; the inference-mode normalization of a
+    frozen ConvBN is the model's ``frozen_below``."""
+    trainable: dict[tuple, bool] = {}
+    for name, v in param_mask.items():
+        key = _cbn_prefix(name)
+        trainable[key] = trainable.get(key, False) or bool(v)
+    return {name: trainable.get(_cbn_prefix(name), True) for name in stats_names}
 
 
 def make_unet_predict(model: torch.nn.Module):

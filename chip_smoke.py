@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's segment path, WSI cascade, U-Net training and
-conv-chain layout probe once on one CUDA GPU and check its kernels.
+"""Drive the PyTorch port's segment path, WSI cascade, U-Net training,
+classifier training and conv-chain layout probe once on one CUDA GPU and
+check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -45,6 +46,18 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
   9. fast head ``UNetTrainer`` with ``UNetConfig(fast_head=True)``: kernels
      B and B' 3 per step; its first step through the kernels against the
      same step with the plain versions
+  9a. train classifier  ``adipose-torch train-classifier`` (``cli.main.main``)
+     at its defaults (batch 32, bf16, percentile, unfreeze mixed7, label
+     smoothing 0.1, dropout 0.4) from seeded pretrained weights, 1 + 1
+     epochs on a seeded 64 + 32 tile 1024^2 dataset: the artifact contract,
+     finite losses, the backbone and its statistics bit-unchanged through
+     phase 1 and convs 0-69 through phase 2, launches P 1 and D 1 a step and
+     P 1 a val batch; each phase's first step through the kernels against
+     the same step with the plain versions; ``weights_best`` served through
+     ``_load_classifier`` gives the logged val AUC; an ``--augment-low-res``
+     step (D at (32, 299, 299)); timings: the train step of each phase and
+     the prep alone by CUDA events, P and D at the path's shapes, peak
+     memory, the device's idle share over one epoch
   9b. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
@@ -95,11 +108,21 @@ from adipose_tpu_torch.ops.cuda.unet_kernels import (diff_sigmoid_head,
                                                      diff_sigmoid_head_plain, head_bwd_plan)
 from adipose_tpu_torch.ops.d4 import INVERSE_IDS
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
+from adipose_tpu_torch.core.seeding import generator_for
+from adipose_tpu_torch.data.augment import draw_tier
+from adipose_tpu_torch.data.loader import ClassificationDataset
+from adipose_tpu_torch.models.convert import flax_inception_to_torch
+from adipose_tpu_torch.models.inception import backbone_param_mask, frozen_conv_boundary
+from adipose_tpu_torch.ops.metrics import roc_auc
 from adipose_tpu_torch.models.convert import load_flax_npz
 from adipose_tpu_torch.ops.normalize import TRAIN_MEAN_DEFAULT, TRAIN_STD_DEFAULT
 from adipose_tpu_torch.scripts import exp_layout_probe as probe
 from adipose_tpu_torch.train import checkpoint as ckpt
-from adipose_tpu_torch.train.state import TrainState, unet_loss_from_config
+from adipose_tpu_torch.train.state import (TrainState, classifier_stats_mask,
+                                           unet_loss_from_config)
+from adipose_tpu_torch.train.trainer_classifier import (INCEPTION_SIZE, ClassifierTrainer,
+                                                         _make_preprocess_step,
+                                                         _make_train_step as _make_cls_step)
 from adipose_tpu_torch.train.trainer_unet import (UNetTrainer, _make_fused_train_step,
                                                    _to_device, init_unet_params,
                                                    make_augment_step)
@@ -1013,6 +1036,299 @@ def phase_train_timing(dev, tmp: Path, data: Path, smi: str) -> dict:
     return {"steps": out, "idle": idle}
 
 
+# ---- classifier training --------------------------------------------------------
+
+CLS_BATCH = 32  # the train-classifier default
+CLS_TRAIN_TILES, CLS_VAL_TILES = 64, 32  # half in each class
+# The first step of each phase, kernels vs plain versions from the same
+# variables, tiles and generator, cuDNN deterministic: P and D are bit-equal
+# to their plain versions, so the two steps see bit-equal inputs and run the
+# same algorithms; any gap would be a fault, these bounds leave no room for
+# one beyond float32 rounding.
+CLS_LOSS_ATOL = 1e-6
+CLS_GRAD_RTOL = 1e-5  # of the leaf's max |g|
+CLS_ARTIFACTS = ("config.json", "training.log", "weights_best/params.npz",
+                 "weights_final/params.npz")
+CLS_LOG_COLUMNS = ["epoch", "loss", "acc", "val_auc", "val_acc", "lr", "epoch_time_s"]
+
+
+def write_class_dataset(root: Path) -> Path:
+    """``{train,val}/{adipose,not_adipose}/*.jpg``, 1024^2 grayscale: tiles
+    with bright round blobs (adipose) and with faint ones (not adipose),
+    named as tiles of four slides."""
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", CLS_TRAIN_TILES), ("val", CLS_VAL_TILES)):
+        for cls in ("adipose", "not_adipose"):
+            (root / split / cls).mkdir(parents=True, exist_ok=True)
+            for i in range(n // 2):
+                img, mask = training_tile(rng)
+                if cls == "not_adipose":  # fainter blobs: the classes overlap
+                    img = np.clip(img.astype(np.float32) - 50.0 * mask, 0, 255).astype(np.uint8)
+                cv2.imwrite(str(root / split / cls / f"s{i % 4}_r{i}_c0.jpg"), img)
+    return root
+
+
+def cls_counts(steps: int, val_batches: int) -> dict[str, int]:
+    """Launches of classifier training: P once a step and a val batch, D
+    once a step."""
+    return {name: 0 for name in KERNELS} | {"percentile_normalize_u8": steps + val_batches,
+                                              "d4_transform_batch": steps}
+
+
+def cls_first_step(trainer: ClassifierTrainer, variables: dict, imgs: torch.Tensor,
+                   labels: torch.Tensor, phase: int, dev, low_res: bool = False):
+    """Prep output, loss and gradients of the first train step of ``phase``
+    from ``variables`` on one device batch, its draws and dropout from
+    batch 0's generator; nothing is kept."""
+    cfg = trainer.cfg
+    unfreeze_from = None if phase == 1 else trainer.model_cfg.unfreeze_from
+    trainer._load(variables)
+    params = dict(trainer.model.named_parameters())
+    mask = backbone_param_mask(params, unfreeze_from)
+    smask = classifier_stats_mask(dict(trainer.model.named_buffers()), mask)
+    state = TrainState.create(params, cfg.optimizer, cfg.lr_phase1, cfg.weight_decay, mask)
+    grads: list = []
+    state.apply_gradients = lambda g: grads.extend(t.float().clone() for t in g)
+    gen = generator_for(f"cls.p{phase}", SEED, 0, device=dev)
+    size = INCEPTION_SIZE if low_res else imgs.shape[-1]
+    x = _make_preprocess_step(True, 1.0, 99.0, low_res)(
+        imgs, draw_tier(gen, "classification", imgs.shape[0], size, size))
+    step = _make_cls_step(trainer.model, trainer.label_smoothing, smask,
+                          frozen_conv_boundary(unfreeze_from))
+    class_w = torch.ones(2, device=dev)
+    metrics = step(state, x, labels, class_w, gen)
+    return x, metrics["loss"].item(), dict(zip(state.trainable, grads))
+
+
+def differing(a: dict, b: dict, names) -> list[str]:
+    """The names whose tensors differ between ``a`` and ``b``."""
+    return [k for k in names if not torch.equal(a[k].cpu(), b[k].cpu())]
+
+
+def phase_train_classifier(dev, tmp: Path, smi: str) -> dict:
+    """``adipose-torch train-classifier`` at its defaults, 1 + 1 epochs from
+    seeded pretrained weights; the kernels against their plain versions on
+    each phase's first step and a low-res step; the best weights served."""
+    data = write_class_dataset(tmp / "cls_data")
+    pretrained = tmp / "cls_pretrained"
+    seeded = InceptionV3Classifier().init_params(torch.Generator().manual_seed(SEED + 1))
+    ckpt.save_params(pretrained, "weights_best", torch_inception_to_flax(seeded.state_dict()))
+    start = flax_inception_to_torch(ckpt.load_params(pretrained / "weights_best"))
+
+    phases: dict[int, tuple[dict, dict]] = {}  # phase: (its start, its best)
+    run_phase = ClassifierTrainer._run_phase
+
+    def spy(self, phase, variables, *args, **kwargs):
+        best, auc = run_phase(self, phase, variables, *args, **kwargs)
+        phases[phase] = (variables, best)
+        return best, auc
+
+    steps = 2 * math.ceil(CLS_TRAIN_TILES / CLS_BATCH)
+    val_batches = 2 * math.ceil(CLS_VAL_TILES / CLS_BATCH)
+    ClassifierTrainer._run_phase = spy
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["train-classifier", "--dataset-root", str(data), "--warmup-epochs", "1",
+                  "--finetune-epochs", "1", "--batch-size", str(CLS_BATCH),
+                  "--pretrained-weights", str(pretrained),
+                  "--checkpoint-dir", str(tmp / "ck_cls"), "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        ClassifierTrainer._run_phase = run_phase
+    wall = time.perf_counter() - t0
+    counts = launches()
+    want = cls_counts(steps, val_batches)
+    if counts != want:
+        raise AssertionError(f"train-classifier launches {counts}, want {want}")
+    (run,) = (tmp / "ck_cls").iterdir()
+    missing = [a for a in CLS_ARTIFACTS if not (run / a).exists()]
+    if missing or not run.name.endswith("_classifier_adipose_sybreosin_percentile"):
+        raise AssertionError(f"train-classifier run {run.name}: missing {missing}")
+    config = json.loads((run / "config.json").read_text())
+    if config["batch_size"] != CLS_BATCH or config["label_smoothing"] != 0.1:
+        raise AssertionError(f"train-classifier config.json {config}")
+    lines = (run / "training.log").read_text().splitlines()
+    row = dict(zip(lines[0].split(","), map(float, lines[1].split(","))))
+    if lines[0].split(",") != CLS_LOG_COLUMNS or len(lines) != 2 or \
+            not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError(f"train-classifier training.log {lines}")
+
+    # Phase 1 moves only the head; phase 2 nothing below conv 70.
+    (in1, best1), (in2, best2) = phases[1], phases[2]
+    if differing(start, in1, start):
+        raise AssertionError("phase 1 did not start from the pretrained weights")
+    below70 = [k for k in in1 if k.startswith("backbone.") and int(k.split(".")[1][4:]) < 70]
+    moved1, moved2 = differing(in1, best1, in1), differing(in2, best2, in2)
+    if set(moved1) != {"adipose_score.weight", "adipose_score.bias"}:
+        raise AssertionError(f"phase 1 moved {moved1[:5]}")
+    if differing(in2, best2, below70) or not moved2:
+        raise AssertionError(f"phase 2 moved frozen {differing(in2, best2, below70)[:5]}")
+    final = flax_inception_to_torch(ckpt.load_params(run / "weights_final"))
+    if differing(final, best2, final):
+        raise AssertionError("weights_final is not phase 2's best")
+
+    # weights_best, served, gives the logged val AUC of its epoch.
+    predict, state = _load_classifier(run, device=dev)
+    val = ClassificationDataset(data / "val", CLS_BATCH, SEED)
+    probs, labels = [], []
+    for imgs, lab in val.epoch_batches(0, shuffle=False):
+        probs.append(predict(state, torch.from_numpy(imgs).to(dev)))
+        labels.append(torch.from_numpy(lab).to(dev))
+    served = roc_auc(torch.cat(probs), torch.cat(labels)).item()
+    n_pos, n_neg = val.class_counts()
+    if not abs(served - row["val_auc"]) <= 1.0 / (n_pos * n_neg):
+        raise AssertionError(f"served val AUC {served} vs logged {row['val_auc']}")
+
+    # Each phase's first step, and a low-res step, against the plain versions.
+    trainer = ClassifierTrainer(data, TrainConfig(batch_size=CLS_BATCH, lr_phase1=1e-3,
+                                                  lr_phase2=1e-4),
+                                checkpoint_root=tmp / "ck_cls_steps", device=dev)
+    imgs, lab = next(iter(trainer.train_data.epoch_batches(0)))
+    imgs, lab = torch.from_numpy(imgs).to(dev), torch.from_numpy(lab).to(dev)
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic = True
+    compared = []
+    try:
+        for phase, low_res in ((1, False), (2, False), (2, True)):
+            reset_launches()
+            xk, loss_k, grads_k = cls_first_step(trainer, start, imgs, lab, phase, dev, low_res)
+            counts_k = launches()
+            reset_launches()
+            with plain_kernels():
+                xp, loss_p, grads_p = cls_first_step(trainer, start, imgs, lab, phase, dev,
+                                                     low_res)
+            if any(launches().values()) or counts_k != cls_counts(1, 0):
+                raise AssertionError(f"first step launches {counts_k}, plain {launches()}")
+            if xk.shape != (CLS_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3) or \
+                    not torch.equal(bits(xk.contiguous()), bits(xp.contiguous())):
+                raise AssertionError(f"phase {phase} low_res {low_res}: prep not bit-equal")
+            worst_leaf, worst = "", 0.0
+            for k, gk in grads_k.items():
+                gp = grads_p[k]
+                rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+                if rel >= worst:
+                    worst_leaf, worst = k, rel
+            loss_err = abs(loss_k - loss_p)
+            if not (math.isfinite(loss_k) and loss_err <= CLS_LOSS_ATOL
+                    and worst <= CLS_GRAD_RTOL):
+                raise AssertionError(f"phase {phase} first step vs plain: loss {loss_k} vs "
+                                     f"{loss_p}, worst grad {worst_leaf} {worst}")
+            compared.append(f"phase {phase}{' low-res' if low_res else ''} loss {loss_k:.6f} "
+                            f"(|d| {loss_err:.3g}), {len(grads_k)} grad leaves, worst "
+                            f"{worst:.3g} of its max")
+    finally:
+        cudnn.deterministic = False
+    print(f"train classifier: adipose-torch train-classifier at its defaults (batch "
+          f"{CLS_BATCH}, bf16, percentile, mixed7, label smoothing 0.1, dropout 0.4) from "
+          f"seeded pretrained weights, 1 + 1 epochs on {CLS_TRAIN_TILES} + {CLS_VAL_TILES} "
+          f"tiles {SIZE}^2: {wall:.2f} s incl. start-up; launches {counts}; artifacts "
+          f"complete; phase 1 moved the head only, phase 2 nothing below conv 70 "
+          f"({len(moved2)} leaves moved); phase 2 loss {row['loss']:.4f} acc {row['acc']:.4f} "
+          f"val AUC {row['val_auc']:.4f} val acc {row['val_acc']:.4f}, epoch "
+          f"{row['epoch_time_s']:.2f} s; weights_best served: val AUC {served:.4f} (bound "
+          f"1/{n_pos * n_neg}) [{smi}]")
+    print(f"train classifier: first steps through P and D vs the plain versions (prep "
+          f"bit-equal; loss bound {CLS_LOSS_ATOL}, grads {CLS_GRAD_RTOL} of each leaf's max; "
+          f"deterministic cuDNN): " + "; ".join(compared))
+    return {"launches": counts, "trainer": trainer, "start": start}
+
+
+def phase_cls_timing(dev, g, cls: dict, smi: str) -> dict:
+    """The classifier's train step in each phase, with and without
+    ``augment_low_res``, and the prep alone, by CUDA events over distinct
+    device batches; peak memory; P and D at the path's shapes beside their
+    bounds; the device's idle share over one phase-2 epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, start = cls["trainer"], cls["start"]
+    model = trainer.model
+    batches = [(torch.randint(0, 256, (CLS_BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev,
+                              generator=g),
+                (torch.rand(CLS_BATCH, device=dev, generator=g) > 0.5).to(torch.float32))
+               for _ in range(3)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    class_w = torch.ones(2, device=dev)
+    out = {}
+    for low_res in (False, True):
+        prep = _make_preprocess_step(True, 1.0, 99.0, low_res)
+        size = INCEPTION_SIZE if low_res else SIZE
+        draw = lambda: draw_tier(gen, "classification", CLS_BATCH, size, size)  # noqa: E731
+        prep_ms = cuda_ms(lambda b: prep(b[0], draw()), batches, 6)
+        for phase, unfreeze_from in ((1, None), (2, "mixed7")):
+            trainer._load(start)
+            params = dict(model.named_parameters())
+            mask = backbone_param_mask(params, unfreeze_from)
+            state = TrainState.create(params, "adam", 1e-4, 0.01, mask)
+            step = _make_cls_step(model, 0.1, classifier_stats_mask(
+                dict(model.named_buffers()), mask), frozen_conv_boundary(unfreeze_from))
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = cuda_ms(lambda b: step(state, prep(b[0], draw()), b[1], class_w, gen),
+                              batches, 6)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            out[(low_res, phase)] = (step_ms, prep_ms, peak)
+            print(f"timing classifier train step, phase {phase}"
+                  f"{', augment-low-res' if low_res else ''}, batch {CLS_BATCH} of {SIZE}^2 "
+                  f"u8: {step_ms:.2f} ms incl. prep = {CLS_BATCH * 1000.0 / step_ms:.2f} tiles/s; "
+                  f"prep alone (P, draws, D and the classification stage, resize) "
+                  f"{prep_ms:.2f} ms; peak memory {peak:.2f} GB (CUDA events, InceptionV3 "
+                  f"bf16 with f32 BatchNorm) [{smi}]")
+            if not low_res:  # the step's device work against its time
+                acts = device_activities(
+                    lambda b: step(state, prep(b[0], draw()), b[1], class_w, gen), batches, 3)
+                dev_ms = sum(ms for ms, _, _ in acts.values())
+                n_acts = sum(per_call for _, per_call, _ in acts.values())
+                top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:6]
+                print(f"  phase {phase} step under torch.profiler: {dev_ms:.2f} ms of device "
+                      f"time in {n_acts} device activities a step ({step_ms:.2f} ms by events: "
+                      f"{100 * (1 - dev_ms / step_ms):.1f}% idle); top ms a step: "
+                      + "; ".join(f"{k[:60]} {ms:.3f} ({n})" for k, (ms, n, _) in top))
+
+    # P and D at the classifier's shapes.
+    u8 = [b[0] for b in batches]
+    n = CLS_BATCH * SIZE * SIZE
+    p_ms, p_plain = in_turns(percentile_normalize_u8_plain, percentile_normalize_u8, u8, 20)
+    p_dev = profiled_ms(percentile_normalize_u8, u8, 20,
+                        ("hist_kernel", "percentile_kernel", "apply_kernel", "emset"))
+    p_bound = bound(n * 5, 6 * n)
+    print(f"timing percentile_normalize_u8 ({CLS_BATCH},{SIZE},{SIZE}) u8 -> f32: kernel "
+          f"{p_ms:.4f} ms, plain {p_plain:.4f} ms by CUDA events; device time {p_dev} ms per "
+          f"call by torch.profiler; bound {p_bound[0]:.4f} ms [{smi}]")
+    d_times = {}
+    for side in (SIZE, INCEPTION_SIZE):
+        d_in = [(torch.rand((CLS_BATCH, side, side), device=dev, generator=g),
+                 torch.randint(0, 8, (CLS_BATCH,), device=dev, generator=g, dtype=torch.int32))
+                for _ in range(3 if side == SIZE else 8)]
+        d_ms, d_plain = in_turns(lambda a: d4_transform_batch_plain(*a),
+                                 lambda a: d4_transform_batch(*a), d_in, 20)
+        d_dev = profiled_ms(lambda a: d4_transform_batch(*a), d_in, 20, ("d4_kernel",))
+        d_bound = bound(2 * CLS_BATCH * side * side * 4 + CLS_BATCH * 4, 0)
+        d_times[side] = (d_ms, d_plain, d_dev, d_bound)
+        print(f"timing d4_transform_batch ({CLS_BATCH},{side},{side}) f32: kernel {d_ms:.4f} "
+              f"ms, plain {d_plain:.4f} ms by CUDA events; device time {d_dev} ms per call by "
+              f"torch.profiler; bound {d_bound[0]:.4f} ms [{smi}]")
+        del d_in
+    del batches, u8
+
+    trainer._run_phase(2, start, 1, 1e-4, "mixed7")  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._run_phase(2, start, 1, 1e-4, "mixed7")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(((device_us(e) / 1e6, e.key) for e in prof.key_averages()), reverse=True)
+    busy = sum(t for t, _ in kernels)
+    idle = 1 - busy / wall
+    print(f"timing classifier epoch (phase 2, {trainer.train_data.steps_per_epoch} steps of "
+          f"{CLS_BATCH} + {trainer.val_data.steps_per_epoch} val batch, JPEG decode and the "
+          f"weights_best write incl.): {wall:.3f} s wall under the profiler, device busy "
+          f"{busy:.3f} s ({100 * idle:.1f}% idle) [{smi}]")
+    print("  top device activities (s): " + "; ".join(
+        f"{name[:60]} {t:.4f}" for t, name in kernels[:10]))
+    return {"steps": out, "idle": idle, "p": (p_ms, p_plain, p_dev, p_bound), "d": d_times}
+
+
 def phase_kernel_timing(dev, g, smi: str) -> dict:
     tiles = [torch.randint(0, 256, (BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev,
                            generator=g) for _ in range(4)]  # 64 MB: more than L2
@@ -1123,8 +1439,9 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
 
 # The path whose run gives each kernel's "launches": the newest that runs it.
 MAIN_PATH = {"fused_zscore_normalize": "cascade", "diff_sigmoid_head": "train_fast_head",
-             "percentile_normalize_u8": "train", "diff_sigmoid_head_backward": "train_fast_head",
-             "d4_transform_batch": "train", "ident_hwbc": "layout_probe"}
+             "percentile_normalize_u8": "train_classifier",
+             "diff_sigmoid_head_backward": "train_fast_head",
+             "d4_transform_batch": "train_classifier", "ident_hwbc": "layout_probe"}
 
 
 def main() -> int:
@@ -1156,7 +1473,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["train_fast_head"] = phase_train_fast_head(dev, Path(tmp), data, smi)["launches"]
         torch.cuda.empty_cache()
+        cls = phase_train_classifier(dev, Path(tmp), smi)
+        paths["train_classifier"] = cls["launches"]
+        torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
+        torch.cuda.empty_cache()
+        phase_cls_timing(dev, g, cls, smi)
+        del cls
     torch.cuda.empty_cache()
     paths["layout_probe"] = phase_layout_probe(dev, smi)
     torch.cuda.empty_cache()

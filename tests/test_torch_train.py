@@ -437,3 +437,78 @@ def test_train_unet_cli_writes_the_artifact_contract(tmp_path):
                               init_tree[("params", "dilate1", "kernel")])
     assert dataclasses.asdict(TrainConfig()).keys() == dataclasses.asdict(
         JaxTrainConfig()).keys()
+
+
+# ---- train-unet's resume, transfer and profiling flags ------------------------
+
+
+def _train_unet(root: Path, ck: Path, timestamp: str, *flags: str) -> Path:
+    torch_main(["train-unet", "--data-root", str(root), "--device", "cpu",
+                "--checkpoint-root", str(ck), "--run-timestamp", timestamp, *flags])
+    return ck / f"{timestamp}_adipose_sybreosin_1024_finetune_v3"
+
+
+def _weights(run: Path, entry: str) -> dict:
+    with np.load(run / entry / "params.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def first_run(tmp_path_factory):
+    """A 1 + 1 epoch run with ``--auto-resume``: its rolling ``latest``
+    state stands after phase 2's epoch 0."""
+    tmp = tmp_path_factory.mktemp("unet_flags")
+    root = _write_dataset(tmp, SIZE, 2, 2)
+    run = _train_unet(root, tmp / "ck", "t0", "--epochs-phase1", "1", "--epochs-phase2", "1",
+                      "--auto-resume")
+    return root, run
+
+
+def test_train_unet_auto_resume_continues_phase_2(first_run, capsys):
+    """Restarted with ``--auto-resume`` and one more phase-2 epoch, the run
+    skips phase 1, resumes phase 2 at epoch 1 and appends to its log."""
+    root, run = first_run
+    meta = json.loads((run / "latest_state.json").read_text())
+    assert (meta["phase"], meta["epoch"]) == (2, 0)
+    phase1_log = (run / "phase1_training.log").read_text()
+    _train_unet(root, run.parent, "t0", "--epochs-phase1", "1", "--epochs-phase2", "2",
+                "--auto-resume")
+    out = capsys.readouterr().out
+    assert "[resume] phase 1 already complete" in out and "[resume] phase 2 from epoch 1" in out
+    assert (run / "phase1_training.log").read_text() == phase1_log
+    rows = (run / "phase2_training.log").read_text().splitlines()
+    assert [r.split(",")[0] for r in rows] == ["epoch", "0", "1"]
+    assert json.loads((run / "latest_state.json").read_text())["epoch"] == 1
+
+
+def test_train_unet_resume_from_skips_phase_1(first_run, tmp_path):
+    """``--resume-from`` a run dir: no phase 1, and phase 2 starts from that
+    run's best weights (with no phase-2 epoch, they are the final weights,
+    bit for bit)."""
+    root, run = first_run
+    new = _train_unet(root, tmp_path, "t1", "--resume-from", str(run), "--epochs-phase2", "0")
+    assert not (new / "phase1_training.log").exists() and not (new / "phase1_best").exists()
+    want, got = _weights(run, "weights_best_overall"), _weights(new, "weights_best_overall")
+    assert want.keys() == got.keys()
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+
+
+def test_train_unet_pretrained_weights_and_profile_dir(first_run, tmp_path, capsys):
+    """``--pretrained-weights`` a run dir merges its best weights by name
+    into the fresh init, so the encoder, frozen in phase 1, stays the
+    pretrained one; ``--profile-dir`` writes the run's torch.profiler trace."""
+    root, run = first_run
+    new = _train_unet(root, tmp_path, "t2", "--pretrained-weights", str(run),
+                      "--epochs-phase1", "1", "--epochs-phase2", "0",
+                      "--profile-dir", str(tmp_path / "prof"))
+    assert f"[pretrained] merged by name from {run}" in capsys.readouterr().out
+    want, got = _weights(run, "weights_best_overall"), _weights(new, "phase1_best")
+    init = _flat(torch_unet_to_flax(init_unet_params(
+        DilatedUNet(init_nb=44, use_deep_supervision=True, device="meta"), 865)))
+    encoder = [k for k in got if "/down" in k]
+    assert len(encoder) == 12
+    for k in encoder:
+        assert np.array_equal(got[k], want[k]), k
+        assert not np.array_equal(got[k], init[tuple(k.split("/"))]), k
+    trace = json.loads((tmp_path / "prof" / "train_unet_trace.json").read_text())
+    assert any(e.get("name") == "aten::conv2d" for e in trace["traceEvents"])

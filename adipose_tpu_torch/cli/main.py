@@ -1,7 +1,7 @@
 """``adipose-torch``: the port's command line.
 
-``adipose-torch segment``, ``pipeline``, ``train-unet`` and
-``train-classifier`` are those subcommands of ``adipose``
+``adipose-torch segment`` (with ``--use-tta``), ``evaluate``, ``pipeline``,
+``train-unet`` and ``train-classifier`` are those subcommands of ``adipose``
 (``adipose_tpu/cli/main.py``) on a torch device, with the same flags plus
 ``--device``. They read and write ``params.npz`` weights (see
 :mod:`adipose_tpu_torch.train.checkpoint`).
@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--input-dir", "--images-dir", dest="input_dir", required=True,
                    help="tile folder (reference name: --images-dir)")
     s.add_argument("--output-dir", required=True)
-    s.add_argument("--use-tta", action="store_true", help="(not ported yet)")
+    s.add_argument("--use-tta", action="store_true",
+                   help="D4 test-time augmentation; its views fold into --batch-size")
     s.add_argument("--tta-mode", choices=["minimal", "basic", "full"], default="basic")
     s.add_argument("--threshold", type=float, default=0.5)
     s.add_argument("--batch-size", type=int, default=8)
@@ -76,7 +77,47 @@ def build_parser() -> argparse.ArgumentParser:
     pl.set_defaults(func=cmd_pipeline)
     _add_train_unet(sub)
     _add_train_classifier(sub)
+    _add_evaluate(sub)
     return parser
+
+
+def _add_evaluate(sub) -> None:
+    """``evaluate``: every flag name and default of ``adipose evaluate`` plus
+    ``--device``."""
+    e = sub.add_parser("evaluate", help="publication-quality segmentation eval")
+    e.add_argument("--weights", required=True)
+    e.add_argument("--test-dataset", required=True)
+    e.add_argument("--output", default=None)
+    e.add_argument("--optimize-threshold", action="store_true")
+    e.add_argument("--adaptive-threshold", action="store_true")
+    e.add_argument("--use-tta", action="store_true")
+    e.add_argument("--tta-mode", choices=["minimal", "basic", "full"], default="basic")
+    e.add_argument("--sliding-window", action="store_true")
+    e.add_argument("--overlap", type=float, default=0.5)
+    e.add_argument("--blend-mode", choices=["gaussian", "linear", "none"], default="gaussian")
+    e.add_argument("--boundary-refine", action="store_true")
+    e.add_argument("--ema", action="store_true")
+    e.add_argument("--n-bootstrap", type=int, default=10000)
+    e.add_argument("--batch-size", type=int, default=16,
+                   help="device batch of forward images; TTA views fold into it")
+    e.add_argument("--transfer-dtype", choices=["float16", "float32"], default="float16",
+                   help="prediction copy precision (float16 halves the device-to-host "
+                        "copy; error <= 5e-4)")
+    e.add_argument("--save-visualizations", dest="save_visualizations",
+                   action="store_true", default=True)
+    e.add_argument("--no-visualizations", dest="save_visualizations", action="store_false")
+    e.add_argument("--n-vis-samples", type=int, default=10)
+    e.add_argument("--refine-kernel", type=int, default=5)
+    e.add_argument("--save-overlays", action="store_true",
+                   help="Dice-bucketed 4-panel dumps over a sampled pos/neg subset "
+                        "(full_evaluation_enhanced.py:1801-1876)")
+    e.add_argument("--n-positive", type=int, default=120)
+    e.add_argument("--n-negative", type=int, default=30)
+    e.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run (evaluate_trace.json)")
+    e.add_argument("--device", default="cuda",
+                   help="torch device; on 'cpu' the kernels' plain versions run")
+    e.set_defaults(func=cmd_evaluate)
 
 
 def _bool(x: str) -> bool:
@@ -256,11 +297,18 @@ def cmd_segment(args) -> None:
 
     if args.bundle:
         raise SystemExit("segment --bundle is not ported yet")
-    if args.use_tta:
-        raise SystemExit("segment --use-tta is not ported yet")
     if not args.weights:
         raise SystemExit("segment requires --weights")
     predict, params, _, _ = _load_segmenter(args.weights, device=args.device)
+    if args.use_tta:
+        from adipose_tpu_torch.eval.tta import make_tta_predict
+        from adipose_tpu_torch.ops.d4 import MODE_IDS
+
+        predict = make_tta_predict(predict, args.tta_mode)
+        # the views fold into the device batch: divide the tile chunk so the
+        # forward batch stays at --batch-size
+        views = len(MODE_IDS.get(args.tta_mode, MODE_IDS["basic"]))
+        args.batch_size = max(1, args.batch_size // views)
     in_dir, out_dir = Path(args.input_dir), Path(args.output_dir)
     # output contract: masks/ always; probability_maps/ and overlays/ behind flags
     masks_dir = out_dir / "masks"
@@ -398,6 +446,42 @@ def cmd_train_classifier(args) -> dict:
         result = trainer.train(args.warmup_epochs, args.finetune_epochs)
     print(json.dumps(result, indent=2))
     return result
+
+
+def _eval_config(args):
+    from adipose_tpu_torch.core.config import EvalConfig
+
+    return EvalConfig(
+        use_tta=args.use_tta, tta_mode=args.tta_mode,
+        use_sliding_window=args.sliding_window, sliding_overlap=args.overlap,
+        blend_mode=args.blend_mode,
+        use_boundary_refinement=args.boundary_refine,
+        optimize_threshold=args.optimize_threshold or args.adaptive_threshold,
+        adaptive_threshold=args.adaptive_threshold,
+        n_bootstrap=args.n_bootstrap, use_ema_weights=args.ema,
+        batch_size=args.batch_size,
+        transfer_dtype=args.transfer_dtype,
+        refine_kernel=args.refine_kernel,
+        save_overlays=args.save_overlays,
+        n_positive=args.n_positive,
+        n_negative=args.n_negative,
+    )
+
+
+def cmd_evaluate(args) -> dict:
+    from adipose_tpu_torch.eval.evaluator import PublicationEvaluator
+
+    ev = PublicationEvaluator(args.weights, _eval_config(args), device=args.device)
+    with _profiled(args.profile_dir, "evaluate_trace.json"):
+        results = ev.evaluate(args.test_dataset, Path(args.test_dataset).name,
+                              output_dir=args.output,
+                              save_visualizations=args.save_visualizations,
+                              n_vis_samples=args.n_vis_samples)
+    print(json.dumps({k: results[k] for k in ("n_slides", "n_tiles", "optimal_threshold")},
+                     indent=2))
+    for k, v in results["metrics"].items():
+        print(f"{k:>16}: {v['mean']:.4f} [{v['ci_lower']:.4f}, {v['ci_upper']:.4f}]")
+    return results
 
 
 @contextlib.contextmanager

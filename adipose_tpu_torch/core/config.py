@@ -1,5 +1,6 @@
 """Dataclass configs, framework-free: copies of ``UNetConfig``,
-``ClassifierConfig`` and ``TrainConfig`` from ``adipose_tpu/core/config.py``.
+``ClassifierConfig``, ``TrainConfig`` and ``EvalConfig`` from
+``adipose_tpu/core/config.py``.
 
 ``from_json`` ignores keys it does not know, so a config written by the JAX
 package loads here.
@@ -102,3 +103,33 @@ class TrainConfig(_JsonMixin):
     num_devices: int = 0  # 0 = all available
     shard_spatial: bool = False
     seed: int = 865
+
+
+@dataclass
+class EvalConfig(_JsonMixin):
+    """Publication evaluation options (``full_evaluation_enhanced.py:1961+``)."""
+
+    use_tta: bool = False
+    tta_mode: str = "basic"  # minimal|basic|full
+    use_sliding_window: bool = False
+    sliding_overlap: float = 0.5
+    blend_mode: str = "gaussian"  # gaussian|linear|none
+    use_boundary_refinement: bool = False
+    refine_kernel: int = 5  # --refine-kernel (:1452)
+    threshold: float = 0.5
+    optimize_threshold: bool = True
+    adaptive_threshold: bool = False  # two-stage 0.1-0.9 grid (:891-939)
+    n_bootstrap: int = 10000
+    eval_seed: int = 1337  # set_deterministic_seeds (:647-655)
+    use_ema_weights: bool = False
+    # The device batch: TTA views fold into it, so the evaluator divides the
+    # tile chunk by the view count.
+    batch_size: int = 16
+    # Prediction download precision: 'float16' halves the device-to-host
+    # copy at <= 5e-4 quantization error; 'float32' copies exactly.
+    transfer_dtype: str = "float16"
+    # Dice-bucketed overlay dumps over a sampled pos/neg tile subset
+    # (--save-overlays/--n-positive/--n-negative, :1111-1140, :1801-1876)
+    save_overlays: bool = False
+    n_positive: int = 120
+    n_negative: int = 30

@@ -66,6 +66,35 @@ def finalize_blend(acc: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
     return acc / wsum.clamp_min(1e-8)
 
 
+def blend_tiles(tiles: torch.Tensor, positions, weight_map: torch.Tensor, out_h: int,
+                out_w: int) -> torch.Tensor:
+    """Weighted blend of (N, T, T) tiles at host (y, x) ``positions`` into a
+    fresh (out_h, out_w) float32 map on the tiles' device: accumulate
+    ``tile * w`` and ``w`` in tile order, then divide with a 1e-8 floor
+    (``GaussianBlender.reconstruct``, ``full_evaluation_enhanced.py:150-183``;
+    a ``weight_map`` of ones is the LinearBlender)."""
+    every = np.ones(len(positions), bool)
+    acc = torch.zeros((out_h, out_w), dtype=torch.float32, device=tiles.device)
+    wsum = accumulate_weights(torch.zeros_like(acc), positions, weight_map, every)
+    return finalize_blend(accumulate_predictions(acc, tiles, positions, weight_map, every), wsum)
+
+
+def blend_tiles_gaussian(tiles, positions, out_shape, sigma_factor: float = 0.25) -> torch.Tensor:
+    """GaussianBlender-equivalent convenience wrapper; numpy or torch tiles."""
+    tiles = torch.as_tensor(tiles)
+    wm = gaussian_weight_map(tiles.shape[-1], sigma_factor, device=tiles.device)
+    return blend_tiles(tiles, positions, wm, int(out_shape[0]), int(out_shape[1]))
+
+
+def blend_tiles_linear(tiles, positions, out_shape) -> torch.Tensor:
+    """LinearBlender-equivalent: uniform weights, so a plain average
+    (``full_evaluation_enhanced.py:186-205``)."""
+    tiles = torch.as_tensor(tiles)
+    t = tiles.shape[-1]
+    wm = torch.ones((t, t), dtype=torch.float32, device=tiles.device)
+    return blend_tiles(tiles, positions, wm, int(out_shape[0]), int(out_shape[1]))
+
+
 def _quantize_u8(p: torch.Tensor) -> torch.Tensor:
     """``(clip(p, 0, 1) * 255).astype(uint8)``: a truncating cast, as the
     reference saves ``prediction * 255``."""

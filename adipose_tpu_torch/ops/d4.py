@@ -10,7 +10,8 @@ single tile, the last two of a batch):
 
 :func:`apply_transform_batch` applies one id per sample of a (B, N, N) batch
 in one launch of the D4 kernel (:mod:`adipose_tpu_torch.ops.cuda.d4`), with
-the ids on the device.
+the ids on the device. Test-time augmentation makes its views with
+:func:`tta_views` and undoes them with :func:`tta_collapse`: one launch each.
 """
 
 from __future__ import annotations
@@ -19,8 +20,26 @@ import torch
 
 from adipose_tpu_torch.ops.cuda.d4 import d4_transform_batch
 
+NUM_TRANSFORMS = 8
+
 # De-augmentation table: the inverse of each transform id, as a transform id.
 INVERSE_IDS = (0, 3, 2, 1, 4, 5, 6, 7)
+
+# The reference's named TTA modes as id subsets.
+# 'minimal': identity, fliplr (full_evaluation_enhanced.py:551-554)
+# 'basic':   identity, fliplr, flipud, rot90 (:556-561); flipud = rot180.fliplr = id 6
+MODE_IDS = {
+    "minimal": (0, 4),
+    "basic": (0, 4, 6, 1),
+    "full": (0, 1, 2, 3, 4, 5, 6, 7),
+}
+
+# Classifier TTA modes: 'basic' is the four rotations, 'full' adds their
+# horizontal flips (classification_inference.py:323-348).
+CLASSIFIER_MODE_IDS = {
+    "basic": (0, 1, 2, 3),
+    "full": (0, 1, 2, 3, 4, 5, 6, 7),
+}
 
 
 def _branch(x: torch.Tensor, transform_id: int) -> torch.Tensor:
@@ -55,3 +74,45 @@ def invert_transform_batch(x: torch.Tensor, transform_ids) -> torch.Tensor:
     ids = _ids_on(x, transform_ids)
     inverse = torch.tensor(INVERSE_IDS, dtype=torch.int32, device=x.device)
     return apply_transform_batch(x, inverse[ids.long().clamp(0, 7)])
+
+
+def expand_tta(x: torch.Tensor, num: int = 8) -> torch.Tensor:
+    """All ``num`` D4 views of one (H, W[, C]) tile -> (num, H, W[, C])."""
+    return torch.stack([apply_transform(x, t) for t in range(num)])
+
+
+def _mean_of_views(views) -> torch.Tensor:
+    """The mean of a sequence of equal-shape maps, summed in order and then
+    divided, as XLA reduces the JAX package's ``jnp.mean(axis=0)``."""
+    total = views[0]
+    for v in views[1:]:
+        total = total + v
+    return total / len(views)
+
+
+def collapse_tta(views: torch.Tensor, num: int = 8) -> torch.Tensor:
+    """De-augment (num, H, W[, C]) predictions and average -> (H, W[, C])."""
+    return _mean_of_views([invert_transform(views[t], t) for t in range(num)])
+
+
+def tta_view_ids(ids, batch: int, device) -> torch.Tensor:
+    """The (n * batch,) int32 id of each view, view-major as the JAX
+    package's (n, B) views: ``ids[k]`` for views ``k * batch .. k * batch +
+    batch - 1``."""
+    return torch.tensor(ids, dtype=torch.int32).repeat_interleave(batch).to(device)
+
+
+def tta_views(images: torch.Tensor, view_ids: torch.Tensor) -> torch.Tensor:
+    """The (n * B, N, N) views of a (B, N, N) float32 batch in one launch of
+    the D4 kernel: view ``k * B + b`` is image b under ``view_ids[k * B + b]``
+    (from :func:`tta_view_ids`)."""
+    n = view_ids.shape[0] // images.shape[0]
+    return apply_transform_batch(images.repeat(n, 1, 1), view_ids)
+
+
+def tta_collapse(preds: torch.Tensor, view_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Undo each view of (n * B, N, N) float32 predictions with the inverse
+    of its id (one launch of the D4 kernel) and average the n views of each
+    image -> (B, N, N)."""
+    restored = invert_transform_batch(preds.contiguous(), view_ids)
+    return _mean_of_views(restored.view(n, -1, *preds.shape[1:]))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's segment path, WSI cascade, U-Net training,
-classifier training and conv-chain layout probe once on one CUDA GPU and
-check its kernels.
+"""Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
+training, classifier training and conv-chain layout probe once on one CUDA
+GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -37,6 +37,18 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      PNGs (6144^2, 6144x4096, 3000x5000) with a seeded full InceptionV3
      and the init_nb=44 U-Net, 1024^2 tiles, batch 16; launch counts per
      chunk batch; checked against the same cascade with the plain versions
+  7b. evaluate  ``adipose-torch evaluate`` (``cli.main.main``) with the
+     slice's checkpoint: full TTA at batch 16 with 1000 resamples and the
+     threshold search on 8 tiles of 1024^2 over 2 slides; minimal TTA with
+     the sliding window, boundary refinement and overlays on a 4096x3072
+     and a 900x700 image; then ``adipose-torch segment --use-tta --tta-mode
+     basic``: artifacts, launches A 1, B 1, D 2 per TTA predict; the
+     evaluator through the kernels against the plain versions (maps,
+     threshold, means); full TTA of an equivariant predict returns its
+     tile; each sliding-window map has its image's size; timings: predict
+     per chunk without TTA, with basic and full, D and A at the TTA shapes,
+     the sliding window per large image (predict and blend), one evaluate
+     run by stage and its device idle share
   8. train   ``adipose-torch train-unet`` (``cli.main.main``) at its defaults
      (init_nb 44, 1024^2, batch 2, bf16, deep supervision, OHEM, EMA,
      cosine, moderate augmentation, percentile) for one epoch per phase on
@@ -87,6 +99,7 @@ import numpy as np
 import torch
 
 import adipose_tpu_torch.cli.main as cli
+import adipose_tpu_torch.eval.evaluator as evaluator_module
 import adipose_tpu_torch.models.unet as unet_module
 import adipose_tpu_torch.ops.d4 as d4_module
 import adipose_tpu_torch.ops.normalize as normalize_module
@@ -106,7 +119,7 @@ from adipose_tpu_torch.ops.cuda.unet_kernels import (diff_sigmoid_head,
                                                      diff_sigmoid_head_backward_plain,
                                                      diff_sigmoid_head_forward,
                                                      diff_sigmoid_head_plain, head_bwd_plan)
-from adipose_tpu_torch.ops.d4 import INVERSE_IDS
+from adipose_tpu_torch.ops.d4 import INVERSE_IDS, MODE_IDS
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
 from adipose_tpu_torch.core.seeding import generator_for
 from adipose_tpu_torch.data.augment import draw_tier
@@ -279,6 +292,7 @@ def plain_kernels():
     """Swap every kernel wrapper on the port's paths for its plain version
     (the plain head is differentiable by autograd, so it stands for B' too)."""
     swaps = [(cli, "fused_zscore_normalize", fused_zscore_normalize_plain),
+             (evaluator_module, "fused_zscore_normalize", fused_zscore_normalize_plain),
              (unet_module, "diff_sigmoid_head", diff_sigmoid_head_plain),
              (normalize_module, "percentile_normalize_u8", percentile_normalize_u8_plain),
              (d4_module, "d4_transform_batch", d4_transform_batch_plain)]
@@ -782,6 +796,309 @@ def phase_cascade(dev, tmp: Path, seg_run: Path, smi: str) -> dict:
           f"{json.dumps({k: round(v, 4) for k, v in stages.items()})} (pipelined: "
           f"enqueue times); peak memory {peak_gb:.2f} GB [{smi}]")
     return {"launches": counts, "err": err}
+
+
+# ---- evaluation ---------------------------------------------------------------
+
+EVAL_TILES = 8  # 1024^2 tiles over 2 slides
+EVAL_LARGE = ((4096, 3072), (900, 700))  # (H, W): a slide region; one smaller than a tile
+EVAL_BOOTSTRAP = 1000
+EVAL_CLI_BATCH = 16  # adipose-torch evaluate's default --batch-size
+SEGMENT_CLI_BATCH = 8  # adipose-torch segment's default --batch-size
+# Kernels vs plain versions in the same evaluator: A and D are bit-equal and
+# B is within HEAD_ATOL, on the same cuDNN convs (deterministic algorithms);
+# so each map within 1e-5, the threshold the same, every mean within 1e-4.
+EVAL_MAP_ATOL = 1e-5
+EVAL_MEAN_ATOL = 1e-4
+# Full TTA of an equivariant predict (the tile scaled to [0, 1]): the views
+# and their inverses are permutations, so only the float32 sum of 8 equal
+# values and its division round.
+TTA_EQUIV_ATOL = 1e-6
+EVAL_ARTIFACTS = ("metrics.json", "predictions.csv", "test_comprehensive_results.csv")
+
+
+def eval_pair(shape: tuple[int, int], rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """A uint8 image whose bright smooth blobs are the mask, with texture."""
+    h, w = shape
+    coarse = rng.random((h // 128 + 2, w // 128 + 2)).astype(np.float32)
+    blobs = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC) > 0.6
+    img = 70.0 + 90.0 * blobs + rng.normal(0.0, 15.0, (h, w)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8), blobs.astype(np.uint8) * 255
+
+
+def write_eval_sets(root: Path) -> tuple[Path, Path]:
+    """Two test sets in the reference layout, each in a folder named test:
+    ``tiles/test`` (EVAL_TILES tiles over two slides) and ``large/test``
+    (the EVAL_LARGE images)."""
+    rng = np.random.default_rng(SEED)
+    sets = {"tiles": [(f"s{t // 4}_r{t % 4 // 2}_c{t % 2}", (SIZE, SIZE))
+                      for t in range(EVAL_TILES)],
+            "large": [(f"s{k}_r0_c0", shape) for k, shape in enumerate(EVAL_LARGE)]}
+    for name, items in sets.items():
+        data = root / name / "test"
+        (data / "images").mkdir(parents=True)
+        (data / "masks").mkdir()
+        for stem, shape in items:
+            img, mask = eval_pair(shape, rng)
+            cv2.imwrite(str(data / "images" / f"{stem}.jpg"), img)
+            cv2.imwrite(str(data / "masks" / f"{stem}.tif"), mask)
+    return root / "tiles" / "test", root / "large" / "test"
+
+
+def tta_counts(predicts: int) -> dict[str, int]:
+    """Launches of ``predicts`` TTA predict calls: A, B once and D twice each."""
+    return {"fused_zscore_normalize": predicts, "diff_sigmoid_head": predicts,
+            "percentile_normalize_u8": 0, "diff_sigmoid_head_backward": 0,
+            "d4_transform_batch": 2 * predicts, "ident_hwbc": 0}
+
+
+def phase_evaluate(dev, tmp: Path, run: Path, smi: str) -> dict:
+    """``adipose-torch evaluate`` with TTA, with TTA and the sliding window,
+    and ``adipose-torch segment --use-tta`` at full width through
+    cli.main.main; then the evaluator through the kernels against the plain
+    versions, TTA's de-augmentation, and the timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adipose_tpu_torch.core.config import EvalConfig
+    from adipose_tpu_torch.eval.evaluator import PublicationEvaluator
+    from adipose_tpu_torch.eval.sliding_window import SlidingWindowInference
+    from adipose_tpu_torch.eval.tta import make_tta_predict
+    from adipose_tpu_torch.ops.blend import blend_tiles, extract_tiles, sliding_window_positions
+
+    tiles_set, large_set = write_eval_sets(tmp / "eval")
+    runs = {  # name: (argv, output dir, TTA predict calls)
+        "tiles": (["evaluate", "--weights", str(run), "--test-dataset", str(tiles_set),
+                   "--use-tta", "--tta-mode", "full", "--batch-size", str(BATCH),
+                   "--n-bootstrap", str(EVAL_BOOTSTRAP), "--optimize-threshold",
+                   "--no-visualizations"],
+                  run / "evaluation" / "test_original_tta_full",
+                  math.ceil(EVAL_TILES / max(1, BATCH // 8))),
+        "large": (["evaluate", "--weights", str(run), "--test-dataset", str(large_set),
+                   "--use-tta", "--tta-mode", "minimal", "--sliding-window", "--overlap", "0.5",
+                   "--boundary-refine", "--save-overlays"],
+                  run / "evaluation" / "test_original_tta_minimal_sw_gaussian_refine",
+                  sum(math.ceil(len(sliding_window_positions((max(h, SIZE), max(w, SIZE)),
+                                                             SIZE, 0.5)) / (EVAL_CLI_BATCH // 2))
+                      for h, w in EVAL_LARGE)),
+    }
+    paths, results = {}, {}
+    for name, (argv, out, predicts) in runs.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        if counts != tta_counts(predicts):
+            raise AssertionError(f"evaluate {name} launches {counts}, want {tta_counts(predicts)}")
+        missing = [a for a in EVAL_ARTIFACTS if not (out / a).exists()]
+        if missing:
+            raise AssertionError(f"evaluate {name} wrote no {missing} in {out}")
+        results[name] = json.loads((out / "metrics.json").read_text())
+        means = {k: v["mean"] for k, v in results[name]["metrics"].items()}
+        if not all(math.isfinite(means[k]) for k in ("dice_score", "accuracy", "roc_auc")):
+            raise AssertionError(f"evaluate {name}: non-finite means {means}")
+        paths[name] = counts
+        print(f"evaluate {name}: adipose-torch {' '.join(argv[:1] + argv[3:])} -> "
+              f"{out.name}: {results[name]['n_tiles']} images, {results[name]['n_slides']} "
+              f"slides, threshold {results[name]['optimal_threshold']:.2f}, dice "
+              f"{means['dice_score']:.4f}, roc_auc {means['roc_auc']:.4f}, hausdorff95 "
+              f"{means['hausdorff95']:.2f}; launches {counts} ({predicts} TTA predicts); "
+              f"{wall:.2f} s incl. start-up [{smi}]")
+    if not any((runs["large"][1] / "overlays").rglob("*.png")):
+        raise AssertionError("evaluate large: no overlays written")
+
+    # segment --use-tta at its CLI batch 8: chunks of 2 tiles, forward batch
+    # 8; then the same call under plain_kernels(), and the device step of its
+    # chunks in-process through the kernels and the plain versions.
+    seg_chunk = SEGMENT_CLI_BATCH // len(MODE_IDS["basic"])
+    seg_argv = ["segment", "--weights", str(run), "--input-dir", str(tiles_set / "images"),
+                "--use-tta", "--tta-mode", "basic", "--save-probability", "--device", str(dev)]
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        reset_launches()
+        cli.main(seg_argv + ["--output-dir", str(tmp / "eval_segment")])
+        seg_counts = launches()
+        reset_launches()
+        with plain_kernels():
+            cli.main(seg_argv + ["--output-dir", str(tmp / "eval_segment_plain")])
+        if any(launches().values()):
+            raise AssertionError(f"plain segment --use-tta launched kernels: {launches()}")
+        predict, params, _, _ = _load_segmenter(run, device=dev)
+        predict = make_tta_predict(predict, "basic")
+        tiles_u8 = np.stack([cv2.imread(str(p), cv2.IMREAD_UNCHANGED) for p in
+                             sorted((tiles_set / "images").glob("*.jpg"))])
+        chunks = [tiles_u8[i:i + seg_chunk] for i in range(0, EVAL_TILES, seg_chunk)]
+        got = [segment_batch(predict, params, c, seg_chunk, dev) for c in chunks]
+        reset_launches()
+        with plain_kernels():
+            ref = [segment_batch(predict, params, c, seg_chunk, dev) for c in chunks]
+        if any(launches().values()):
+            raise AssertionError(f"plain segment chunks launched kernels: {launches()}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    want = tta_counts(math.ceil(EVAL_TILES / seg_chunk))
+    masks = sorted((tmp / "eval_segment" / "masks").glob("*_mask.tif"))
+    if seg_counts != want or len(masks) != EVAL_TILES:
+        raise AssertionError(f"segment --use-tta: {len(masks)} masks, launches {seg_counts}, "
+                             f"want {want}")
+    seg_map_err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    # The written u8 maps within 1 grey level; a mask pixel may differ only
+    # where both maps sit at 0.5 within EVAL_MAP_ATOL, which writes grey 127.
+    grey_err, flips = 0, 0
+    for m in masks:
+        stem = m.name[:-len("_mask.tif")]
+        read = lambda d, sub, suffix: cv2.imread(  # noqa: E731
+            str(tmp / d / sub / f"{stem}_{suffix}.tif"), cv2.IMREAD_UNCHANGED).astype(int)
+        pk, pp = read("eval_segment", "probability_maps", "prob"), \
+            read("eval_segment_plain", "probability_maps", "prob")
+        differ = read("eval_segment", "masks", "mask") != read("eval_segment_plain", "masks",
+                                                               "mask")
+        grey_err = max(grey_err, int(np.abs(pk - pp).max()))
+        flips += int(differ.sum())
+        if differ.any() and not ((pk[differ] == 127) & (pp[differ] == 127)).all():
+            raise AssertionError(f"segment --use-tta {stem}: a mask pixel flipped away from 0.5")
+    if not seg_map_err <= EVAL_MAP_ATOL or grey_err > 1:
+        raise AssertionError(f"segment --use-tta kernels vs plain: maps {seg_map_err}, "
+                             f"probability maps {grey_err} grey levels")
+    print(f"segment_tta: adipose-torch segment --use-tta --tta-mode basic over {EVAL_TILES} "
+          f"tiles: {len(masks)} masks, launches {seg_counts}; vs plain versions (chunks of "
+          f"{seg_chunk}, forward batch {seg_chunk * len(MODE_IDS['basic'])}, deterministic "
+          f"cuDNN): maps max abs err {seg_map_err:.3g} (bound {EVAL_MAP_ATOL}), written "
+          f"probability maps {grey_err} grey levels apart (bound 1), {flips} mask pixels differ")
+    del got, ref
+
+    # The same evaluator through the kernels and through the plain versions.
+    cfg = EvalConfig(use_tta=True, tta_mode="full", batch_size=BATCH, transfer_dtype="float32",
+                     n_bootstrap=EVAL_BOOTSTRAP)
+    ev = PublicationEvaluator(run, cfg, device=dev)
+    paths_list = sorted(str(p) for p in (tiles_set / "images").glob("*.jpg"))
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        _, got = ev.predict_tiles(paths_list)
+        kernel_res = ev.evaluate(tiles_set, "test", output_dir=tmp / "eval_kernels")
+        reset_launches()
+        with plain_kernels():
+            _, ref = ev.predict_tiles(paths_list)
+            plain_res = ev.evaluate(tiles_set, "test", output_dir=tmp / "eval_plain")
+        if any(launches().values()):
+            raise AssertionError(f"plain evaluator launched kernels: {launches()}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    map_err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    mean_err = max(abs(kernel_res["metrics"][k]["mean"] - plain_res["metrics"][k]["mean"])
+                   for k in kernel_res["metrics"])
+    if not map_err <= EVAL_MAP_ATOL or not mean_err <= EVAL_MEAN_ATOL or \
+            kernel_res["optimal_threshold"] != plain_res["optimal_threshold"]:
+        raise AssertionError(f"evaluator kernels vs plain: maps {map_err}, means {mean_err}, "
+                             f"thresholds {kernel_res['optimal_threshold']} vs "
+                             f"{plain_res['optimal_threshold']}")
+    print(f"evaluate kernels vs plain versions (full TTA, float32 maps, deterministic cuDNN): "
+          f"maps max abs err {map_err:.3g} (bound {EVAL_MAP_ATOL}), threshold "
+          f"{kernel_res['optimal_threshold']:.2f} both, means max abs err {mean_err:.3g} "
+          f"(bound {EVAL_MEAN_ATOL})")
+
+    # De-augmentation: full TTA of an equivariant predict gives back the tile.
+    tile = torch.from_numpy(cv2.imread(str(paths_list[0]), cv2.IMREAD_UNCHANGED)).to(dev)
+    tile = tile[None].to(torch.float32)
+    scaled = make_tta_predict(lambda _, t: t / 255.0, "full")(None, tile)
+    equiv_err = (scaled - tile / 255.0).abs().max().item()
+    if not equiv_err <= TTA_EQUIV_ATOL:
+        raise AssertionError(f"full TTA of the scaled tile: max abs err {equiv_err}")
+
+    # The sliding window keeps each image's size.
+    large_paths = sorted(str(p) for p in (large_set / "images").glob("*.jpg"))
+    sw_ev = PublicationEvaluator(run, EvalConfig(use_tta=True, tta_mode="minimal",
+                                                 use_sliding_window=True), device=dev)
+    images, maps = sw_ev.predict_tiles(large_paths)
+    if [m.shape for m in maps] != [i.shape for i in images] or \
+            sorted(m.shape for m in maps) != sorted(EVAL_LARGE):
+        raise AssertionError(f"sliding window maps {[m.shape for m in maps]} for images "
+                             f"{[i.shape for i in images]}")
+    print(f"evaluate checks: full TTA of the scaled tile returns it within {equiv_err:.3g} "
+          f"(bound {TTA_EQUIV_ATOL}); sliding-window maps {[m.shape for m in maps]} match "
+          f"their images")
+
+    # Timings: TTA predict per chunk, D and A at the TTA shapes, the sliding
+    # window per large image, one evaluate run by stage and its idle share.
+    tta_ms = {}
+    for mode, n_views in (("none", 1), ("basic", 4), ("full", 8)):
+        b = max(1, BATCH // n_views)
+        fn = ev.predict_raw if mode == "none" else make_tta_predict(ev.predict_raw, mode)
+        batches = [torch.randint(0, 256, (b, SIZE, SIZE), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + i)).to(torch.float32) for i in range(3)]
+        ms = cuda_ms(lambda t: fn(ev.params, t), batches, 6)
+        tta_ms[mode] = (ms, b * 1000.0 / ms)
+        del batches
+    print("timing evaluate predict per chunk by CUDA events (float32 tiles, forward batch "
+          f"{BATCH}): " + ", ".join(f"{m} TTA {ms:.3f} ms = {r:.2f} tiles/s"
+                                    for m, (ms, r) in tta_ms.items()) + f" [{smi}]")
+    views = [torch.rand((BATCH, SIZE, SIZE), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + i)) for i in range(3)]
+    ids = [torch.randint(0, 8, (BATCH,), dtype=torch.int32, device=dev) for _ in range(3)]
+    d_in = list(zip(views, ids))
+    d_ms, d_plain = in_turns(lambda a: d4_transform_batch_plain(*a),
+                             lambda a: d4_transform_batch(*a), d_in, 20)
+    d_dev = profiled_ms(lambda a: d4_transform_batch(*a), d_in, 20, ("d4_kernel",))
+    d_bound = bound(2 * BATCH * SIZE * SIZE * 4 + BATCH * 4, 0)
+    zs = lambda t: fused_zscore_normalize(t, TRAIN_MEAN_DEFAULT,  # noqa: E731
+                                          TRAIN_STD_DEFAULT, out_dtype=torch.bfloat16)
+    a_ms, a_plain = in_turns(lambda t: fused_zscore_normalize_plain(
+        t, TRAIN_MEAN_DEFAULT, TRAIN_STD_DEFAULT, out_dtype=torch.bfloat16), zs, views, 20)
+    a_dev = profiled_ms(zs, views, 20, ("zscore_kernel", "zscore_finalize", "emset"))
+    n = BATCH * SIZE * SIZE
+    a_bound = bound(n * 4 + n * 2 + BATCH * 12, 8 * n)  # f32 in, bf16 out, stats
+    print(f"timing d4_transform_batch ({BATCH},{SIZE},{SIZE}) f32 (the TTA views): kernel "
+          f"{d_ms:.4f} ms, plain {d_plain:.4f} ms by CUDA events; device time {d_dev} ms per "
+          f"call; bound {d_bound[0]:.4f} ms [{smi}]")
+    print(f"timing fused_zscore_normalize ({BATCH},{SIZE},{SIZE}) f32 -> bf16 (the TTA views): "
+          f"kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms by CUDA events; device time {a_dev} ms "
+          f"per call; bound {a_bound[0]:.4f} ms [{smi}]")
+    del views, ids, d_in
+
+    sw = SlidingWindowInference(tile_size=SIZE, overlap=0.5, batch_size=BATCH // 2,
+                                transfer_dtype="float16", device=dev)
+    big = cv2.imread(large_paths[int(np.argmax([i.size for i in images]))], cv2.IMREAD_UNCHANGED)
+    predict = make_tta_predict(ev.predict_raw, "minimal")
+    sw.predict(predict, ev.params, big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw.predict(predict, ev.params, big)
+    sw_s = time.perf_counter() - t0
+    image = torch.from_numpy(big).to(dev).to(torch.float32)
+    positions = sliding_window_positions(big.shape, SIZE, 0.5)
+    tiles = extract_tiles(image, positions, SIZE)
+    b = BATCH // 2
+    predict_ms = cuda_ms(lambda _: [predict(ev.params, tiles[i:i + b])
+                                    for i in range(0, len(tiles), b)], [None], 1)
+    preds = torch.cat([predict(ev.params, tiles[i:i + b]) for i in range(0, len(tiles), b)])
+    blend_ms = cuda_ms(lambda p: blend_tiles(p, positions, sw.weight_map, *big.shape),
+                       [preds], 3)
+    print(f"timing sliding window {big.shape[0]}x{big.shape[1]} ({len(positions)} tiles, "
+          f"minimal TTA, batch {b} tiles): {sw_s * 1000:.1f} ms per image by the host clock "
+          f"incl. upload and float16 copy; predict {predict_ms:.1f} ms, blend {blend_ms:.2f} ms "
+          f"by CUDA events [{smi}]")
+    del image, tiles, preds
+
+    ev.evaluate(tiles_set, "test", output_dir=tmp / "eval_timed")
+    stages = dict(ev.timings)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.evaluate(tiles_set, "test", output_dir=tmp / "eval_profiled")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    print(f"timing evaluate (full TTA, {EVAL_TILES} tiles, {EVAL_BOOTSTRAP} resamples, float32 "
+          f"maps) by stage, host clock: {json.dumps({k: round(v, 4) for k, v in stages.items()})}"
+          f" = {sum(stages.values()):.3f} s; under the profiler {wall:.3f} s wall, device busy "
+          f"{busy:.3f} s ({100 * (1 - busy / wall):.1f}% idle) [{smi}]")
+    return {"launches": {k: paths["tiles"][k] + paths["large"][k] for k in paths["tiles"]},
+            "segment_tta": seg_counts}
 
 
 # ---- training -----------------------------------------------------------------
@@ -1467,6 +1784,9 @@ def main() -> int:
         paths["segment"] = phase_slice(dev, run, smi)["launches"]
         torch.cuda.empty_cache()
         paths["cascade"] = phase_cascade(dev, Path(tmp), run, smi)["launches"]
+        torch.cuda.empty_cache()
+        evaluated = phase_evaluate(dev, Path(tmp), run, smi)
+        paths["evaluate"], paths["segment_tta"] = evaluated["launches"], evaluated["segment_tta"]
         torch.cuda.empty_cache()
         data = write_dataset(Path(tmp) / "data")
         paths["train"] = phase_train_cli(dev, Path(tmp), data, smi)["launches"]

@@ -110,7 +110,54 @@ def test_model_config_reads_what_the_jax_package_writes(tmp_path):
         assert (c.tile_size, c.dropout_rate) == (want.tile_size, want.dropout_rate)
 
 
-@pytest.mark.parametrize("flag", ["--use-tta", "--bundle=x"])
+def test_segment_tta_matches_jax_cli(run_and_tiles, tmp_path, monkeypatch):
+    """``segment --use-tta --tta-mode basic`` on both CLIs: masks and
+    probability maps within the bands of test_segment_matches_jax_cli; the
+    tile chunk is --batch-size divided by the 4 views, so each forward
+    batch is --batch-size images."""
+    import adipose_tpu_torch.cli.main as cli
+
+    run, tiles = run_and_tiles
+    _export_script().main([str(run)])
+    chunks, forwards = [], []
+    segment = cli.segment_batch
+    zscore = cli.fused_zscore_normalize
+    monkeypatch.setattr(cli, "segment_batch", lambda predict, params, batch, size, device: (
+        chunks.append((batch.shape[0], size)) or segment(predict, params, batch, size, device)))
+    monkeypatch.setattr(cli, "fused_zscore_normalize", lambda tiles, *a, **k: (
+        forwards.append(tuple(tiles.shape)) or zscore(tiles, *a, **k)))
+    flags = ["--input-dir", str(tiles), "--batch-size", "8", "--save-probability",
+             "--use-tta", "--tta-mode", "basic", "--weights", str(run)]
+    jax_main(["segment", "--output-dir", str(tmp_path / "jax"), *flags])
+    torch_main(["segment", "--output-dir", str(tmp_path / "torch"), "--device", "cpu", *flags])
+    assert chunks == [(2, 2), (1, 2)]
+    assert forwards == [(8, 64, 64)] * 2
+
+    rel = lambda d: sorted(p.relative_to(d) for p in d.rglob("*") if p.is_file())
+    assert rel(tmp_path / "jax") == rel(tmp_path / "torch")
+    assert len(rel(tmp_path / "torch")) == 6
+    monkeypatch.undo()
+    from adipose_tpu_torch.eval.tta import make_tta_predict
+
+    predict, params, _, _ = _load_segmenter(run, device="cpu")
+    names = sorted(tiles.iterdir())
+    batch = np.stack([cv2.imread(str(p), cv2.IMREAD_UNCHANGED).astype(np.float32)
+                      for p in names])
+    tta = make_tta_predict(predict, "basic")
+    probs = np.concatenate([segment_batch(tta, params, batch[i:i + 2], 2, "cpu")
+                            for i in (0, 2)])  # the CLI's chunks
+    for p, prob in zip(names, probs):
+        read = lambda side, sub, suffix: cv2.imread(
+            str(tmp_path / side / sub / f"{p.stem}_{suffix}.tif"), cv2.IMREAD_UNCHANGED)
+        mj, mt = read("jax", "masks", "mask"), read("torch", "masks", "mask")
+        assert np.array_equal(mt, (prob > 0.5).astype(np.uint8))
+        assert np.all(np.abs(prob[mj != mt] - 0.5) <= MASK_FLIP_BAND)
+        pj = read("jax", "probability_maps", "prob").astype(int)
+        pt = read("torch", "probability_maps", "prob").astype(int)
+        assert np.abs(pj - pt).max() <= 1
+
+
+@pytest.mark.parametrize("flag", ["--bundle=x"])
 def test_segment_refuses_what_is_not_ported(run_and_tiles, tmp_path, flag):
     run, tiles = run_and_tiles
     with pytest.raises(SystemExit, match="not ported yet"):

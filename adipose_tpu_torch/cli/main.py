@@ -1,10 +1,11 @@
 """``adipose-torch``: the port's command line.
 
-``adipose-torch segment`` (with ``--use-tta``), ``evaluate``, ``pipeline``,
-``train-unet`` and ``train-classifier`` are those subcommands of ``adipose``
-(``adipose_tpu/cli/main.py``) on a torch device, with the same flags plus
-``--device``. They read and write ``params.npz`` weights (see
-:mod:`adipose_tpu_torch.train.checkpoint`).
+``adipose-torch segment`` (with ``--use-tta``), ``classify``, ``evaluate``,
+``evaluate-checkpoints``, ``eval-classifier``, ``tile-classification-eval``,
+``visualize-metrics``, ``pipeline``, ``train-unet`` and ``train-classifier``
+are those subcommands of ``adipose`` (``adipose_tpu/cli/main.py``) on a torch
+device, with the same flags plus ``--device`` where a model runs. They read
+and write ``params.npz`` weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
 from __future__ import annotations
@@ -78,7 +79,170 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train_unet(sub)
     _add_train_classifier(sub)
     _add_evaluate(sub)
+    _add_batch_evaluation(sub)
+    _add_classifier_inference(sub)
     return parser
+
+
+def _add_device(p, func) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device; on 'cpu' the kernels' plain versions run")
+    p.set_defaults(func=func)
+
+
+def _add_eval_opts(p) -> None:
+    """The shared eval-config flag set (full_evaluation_enhanced.py:2011-2046)
+    of evaluate-checkpoints and visualize-metrics."""
+    p.add_argument("--use-tta", action="store_true")
+    p.add_argument("--tta-mode", choices=["minimal", "basic", "full"], default="basic")
+    p.add_argument("--sliding-window", action="store_true")
+    p.add_argument("--overlap", type=float, default=0.5)
+    p.add_argument("--blend-mode", choices=["gaussian", "linear", "none"], default="gaussian")
+    p.add_argument("--boundary-refine", action="store_true")
+    p.add_argument("--refine-kernel", type=int, default=5)
+    p.add_argument("--adaptive-threshold", action="store_true")
+    p.add_argument("--ema", action="store_true")
+
+
+def _add_dataset_selectors(p) -> None:
+    """--val/--test/--human-test/--clean-test x --stain/--original
+    (evaluate_all_checkpoints.py:531-549), resolved under --data-root as
+    <root>/<stain_normalized|original>/<name> when that layout exists."""
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--val", action="store_true")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--human-test", action="store_true")
+    p.add_argument("--clean-test", action="store_true")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--stain", action="store_true")
+    g.add_argument("--original", action="store_true")
+
+
+def _add_batch_evaluation(sub) -> None:
+    """``evaluate-checkpoints``, ``tile-classification-eval`` and
+    ``visualize-metrics``: every flag name and default of the ``adipose``
+    subcommands plus ``--device`` where a model runs."""
+    ec = sub.add_parser("evaluate-checkpoints", help="batch-evaluate all checkpoints")
+    ec.add_argument("--checkpoints-root", default="checkpoints/segmentation")
+    ec.add_argument("--test-dataset", default=None,
+                    help="direct dataset path (or use the selector flags)")
+    _add_eval_opts(ec)
+    _add_dataset_selectors(ec)
+    ec.add_argument("--no-images", action="store_true",
+                    help="skip per-tile visualization images")
+    ec.add_argument("--parallel", action="store_true")
+    ec.add_argument("--max-workers", type=int, default=2)
+    ec.add_argument("--n-bootstrap", type=int, default=2000)
+    ec.add_argument("--transfer-dtype", choices=["float16", "float32"], default="float16")
+    _add_device(ec, cmd_evaluate_checkpoints)
+
+    tce = sub.add_parser("tile-classification-eval",
+                         help="score the segmenter as a tile classifier")
+    tce.add_argument("--weights", required=True)
+    tce.add_argument("--test-dataset", "--data-root", dest="test_dataset", required=True)
+    tce.add_argument("--coverage-threshold", type=float, default=None,
+                     help="fat coverage fraction for 'has fat'")
+    tce.add_argument("--threshold", type=float, default=10.0,
+                     help="fat PERCENTAGE threshold (tile_classification_evaluation.py:616)")
+    tce.add_argument("--mask-threshold", type=float, default=0.5,
+                     help="pixel threshold for the binary mask")
+    tce.add_argument("--multi-threshold", nargs="?", const=True, default=None,
+                     help="sweep thresholds; optionally a comma list of percentages, "
+                          "e.g. \"1,5,10,15,25\"")
+    tce.add_argument("--use-tta", action="store_true")
+    tce.add_argument("--tta-mode", choices=["minimal", "basic", "full"], default="basic")
+    tce.add_argument("--boundary-refine", action="store_true")
+    tce.add_argument("--refine-kernel", type=int, default=5)
+    tce.add_argument("--transfer-dtype", choices=["float16", "float32"], default="float16")
+    tce.add_argument("--output", "--output-dir", dest="output", default=None)
+    _add_device(tce, cmd_tile_classification_eval)
+
+    vm = sub.add_parser("visualize-metrics", help="compare checkpoint metrics")
+    vm.add_argument("--checkpoints-root", default="checkpoints/segmentation")
+    vm.add_argument("--checkpoints", nargs="+", default=None,
+                    help="restrict to these checkpoint dir names")
+    vm.add_argument("--name", default=None,
+                    help="output filename stem (visualize_checkpoint_metrics.py:739)")
+    vm.add_argument("--metric", default="Dice Score")
+    vm.add_argument("--output", default="checkpoint_comparison.png")
+    _add_eval_opts(vm)
+    _add_dataset_selectors(vm)
+    vm.set_defaults(func=cmd_visualize_metrics)
+
+
+def _add_classifier_inference(sub) -> None:
+    """``eval-classifier`` and ``classify``: every flag name and default of
+    the ``adipose`` subcommands plus ``--device``."""
+    cl = sub.add_parser("eval-classifier", help="classifier test evaluation")
+    cl.add_argument("--weights", required=True)
+    cl.add_argument("--dataset-root", default=None)
+    cl.add_argument("--split", default="test")
+    cl.add_argument("--test-dir", default=None,
+                    help="a dir with adipose/ and not_adipose/ (overrides "
+                         "--dataset-root/--split)")
+    cl.add_argument("--batch-size", type=int, default=64)
+    cl.add_argument("--dropout", type=float, default=0.4,
+                    help="head dropout rate; inference does not use it")
+    cl.add_argument("--use-tta", type=_bool, default=True)
+    cl.add_argument("--tta-mode", choices=["basic", "full"], default="full")
+    cl.add_argument("--tta", choices=["none", "basic", "full"], default=None,
+                    help="reference-style mode (overrides --use-tta/--tta-mode; "
+                         "'none' disables TTA)")
+    cl.add_argument("--calibration", choices=["temperature", "platt", "isotonic"],
+                    default=None)
+    cl.add_argument("--calibration-val-root", default=None,
+                    help="dataset root whose split supplies calibration tiles "
+                         "(eval_adipose_classifier.py:790-795); without it, "
+                         "calibration splits the test set internally")
+    cl.add_argument("--calibration-val-split", default="val")
+    cl.add_argument("--snapshot", action="append", default=[],
+                    help="extra checkpoint(s) to ensemble in logit space (repeatable)")
+    cl.add_argument("--slide-map", default=None,
+                    help="CSV tile,slide_id map for slide-level aggregation")
+    cl.add_argument("--save-plots", action="store_true", default=True)
+    cl.add_argument("--no-plots", dest="save_plots", action="store_false")
+    cl.add_argument("--save-examples", action="store_true", default=True)
+    cl.add_argument("--no-examples", dest="save_examples", action="store_false")
+    cl.add_argument("--num-examples", type=int, default=10)
+    cl.add_argument("--percentile-norm-examples", type=_bool, default=True,
+                    help="render example dumps percentile-normalized")
+    cl.add_argument("--percentile-norm", type=_bool, default=True)
+    cl.add_argument("--percentile-low", type=float, default=1.0)
+    cl.add_argument("--percentile-high", type=float, default=99.0)
+    cl.add_argument("--output", "--output-dir", dest="output", default=None)
+    _add_device(cl, cmd_eval_classifier)
+
+    ci = sub.add_parser("classify", help="folder classification -> CSV")
+    ci.add_argument("--weights", default=None)
+    ci.add_argument("--bundle", default=None, help="export bundle (not ported yet)")
+    ci.add_argument("--input-dir", required=True)
+    ci.add_argument("--output-dir", default="classification_outputs",
+                    help="dir for predictions_{mode}{_tta}.csv "
+                         "(classification_inference.py:120-124)")
+    ci.add_argument("--output-csv", default=None,
+                    help="explicit CSV path (overrides --output-dir naming)")
+    ci.add_argument("--pattern", default="**/*.jpg",
+                    help="glob pattern for image files (recursive)")
+    ci.add_argument("--use-rgb", action="store_false", dest="use_grayscale",
+                    help="feed RGB directly (legacy-classifier preprocessing)")
+    ci.add_argument("--use-grayscale", action="store_true", dest="use_grayscale",
+                    default=True, help="grayscale -> 3-channel tile preprocessing (default)")
+    ci.add_argument("--threshold", type=float, default=0.5)
+    ci.add_argument("--dropout", type=float, default=0.4,
+                    help="head dropout rate; inference does not use it")
+    ci.add_argument("--percentile-norm", action="store_true",
+                    help="apply 1-99 percentile normalization before resize "
+                         "(the reference inference CLI skips it, "
+                         "classification_inference.py:288-320)")
+    ci.add_argument("--use-tta", action="store_true")
+    ci.add_argument("--tta-mode", choices=["basic", "full"], default="basic")
+    ci.add_argument("--save-visualizations", action="store_true",
+                    help="save positive tiles annotated with their probability")
+    ci.add_argument("--gpu", default=None,
+                    help="accepted for the JAX CLI and ignored: --device picks the device "
+                         "(classification_inference.py:182-186)")
+    ci.add_argument("--batch-size", type=int, default=32)
+    _add_device(ci, cmd_classify)
 
 
 def _add_evaluate(sub) -> None:
@@ -266,16 +430,24 @@ def _load_segmenter(weights, use_ema: bool = False, device="cuda"):
     return predict, params, mean, std
 
 
-def _load_classifier(weights, device="cuda"):
+def _classifier_state(weights, device="cuda") -> dict[str, torch.Tensor]:
+    """The classifier state dict of a checkpoint dir, on ``device``."""
+    variables = ckpt.load_params(ckpt.resolve_weights_path(weights))
+    return {k: v.to(device) for k, v in flax_inception_to_torch(variables).items()}
+
+
+def _load_classifier(weights, device="cuda", percentile_norm: bool = True,
+                     p_low: float = 1.0, p_high: float = 99.0):
     """``(predict, state)`` for a classifier checkpoint dir:
     ``predict(state, tiles)`` percentile-stretches (B, H, W) uint8/float32
-    tiles on ``device``, resizes them to 299^2 and runs the bf16
-    InceptionV3; it returns (B,) float32 probabilities."""
-    variables = ckpt.load_params(ckpt.resolve_weights_path(weights))
-    state = {k: v.to(device) for k, v in flax_inception_to_torch(variables).items()}
+    tiles on ``device`` (unless ``percentile_norm`` is off), resizes them to
+    299^2 and runs the bf16 InceptionV3; it returns (B,) float32
+    probabilities. (B, H, W, 3) RGB tiles are resized without channel
+    tiling."""
     # predict() runs on the state it is given
     model = InceptionV3Classifier(compute_dtype=torch.bfloat16, device="meta")
-    return _make_val_step(model, True, 1.0, 99.0), state
+    return (_make_val_step(model, percentile_norm, p_low, p_high),
+            _classifier_state(weights, device))
 
 
 def segment_batch(predict, params, batch: np.ndarray, batch_size: int, device) -> np.ndarray:
@@ -482,6 +654,232 @@ def cmd_evaluate(args) -> dict:
     for k, v in results["metrics"].items():
         print(f"{k:>16}: {v['mean']:.4f} [{v['ci_lower']:.4f}, {v['ci_upper']:.4f}]")
     return results
+
+
+def _selected_names(args) -> list[str]:
+    """Dataset names picked by --val/--test/--human-test/--clean-test."""
+    return [n for n in ("val", "test", "human_test", "clean_test") if getattr(args, n)]
+
+
+def _selected_datasets(args) -> list[Path]:
+    """The selector flags resolved under --data-root: <root>/<stain_normalized|
+    original>/<name>, else <root>/<name> (evaluate_all_checkpoints.py:531-549,607)."""
+    names = _selected_names(args)
+    root = Path(args.data_root or ".")
+    source = "stain_normalized" if args.stain else "original"
+    return [root / source / n if (root / source / n).exists() else root / n for n in names]
+
+
+def _batch_eval_config(args, **kw):
+    from adipose_tpu_torch.core.config import EvalConfig
+
+    return EvalConfig(
+        use_tta=args.use_tta, tta_mode=args.tta_mode,
+        use_sliding_window=args.sliding_window, sliding_overlap=args.overlap,
+        blend_mode=args.blend_mode, use_boundary_refinement=args.boundary_refine,
+        refine_kernel=args.refine_kernel, adaptive_threshold=args.adaptive_threshold,
+        use_ema_weights=args.ema, **kw)
+
+
+def cmd_evaluate_checkpoints(args) -> list:
+    from adipose_tpu_torch.eval.batch_eval import CheckpointBatchEvaluator
+
+    cfg = _batch_eval_config(args, optimize_threshold=True, n_bootstrap=args.n_bootstrap,
+                             transfer_dtype=args.transfer_dtype)
+    datasets = _selected_datasets(args) or (
+        [Path(args.test_dataset)] if args.test_dataset else [])
+    if not datasets:
+        raise SystemExit("evaluate-checkpoints needs --test-dataset or a selector "
+                         "(--val/--test/--human-test/--clean-test)")
+    records = []
+    for ds in datasets:
+        be = CheckpointBatchEvaluator(args.checkpoints_root, ds, cfg,
+                                      save_images=not args.no_images, parallel=args.parallel,
+                                      max_workers=args.max_workers, device=args.device)
+        records.extend(be.run(ds.name))
+    for r in records:
+        status = r["status"]
+        extra = (f" dice={r['dice']:.4f}" if status == "success"
+                 else f" {r.get('error', '')[:60]}")
+        print(f"{status:>8}  {Path(r['checkpoint']).name}{extra}")
+    return records
+
+
+def cmd_visualize_metrics(args):
+    from adipose_tpu_torch.eval.batch_eval import (collect_checkpoint_metrics,
+                                                   plot_checkpoint_comparison)
+
+    rows = collect_checkpoint_metrics(args.checkpoints_root, _batch_eval_config(args))
+    if args.checkpoints:
+        rows = [r for r in rows if r["checkpoint"] in args.checkpoints]
+    # dataset and source selectors filter on the eval-dir name
+    # ({dataset}_{source}_..., full_evaluation_enhanced.py:2060-2101)
+    names = _selected_names(args)
+    if names:
+        rows = [r for r in rows if any(r["eval_dir"].startswith(f"{n}_") for n in names)]
+    if args.stain or args.original:
+        source = "stain" if args.stain else "original"
+        rows = [r for r in rows if f"_{source}" in r["eval_dir"]]
+    if not rows:
+        print("no evaluated checkpoints found")
+        return None
+    out = plot_checkpoint_comparison(rows, f"{args.name}.png" if args.name else args.output,
+                                     args.metric)
+    print(f"wrote {out}")
+    return out
+
+
+def cmd_tile_classification_eval(args) -> dict:
+    from adipose_tpu_torch.core.config import EvalConfig
+    from adipose_tpu_torch.eval.evaluator import (PublicationEvaluator, load_validation_data,
+                                                  read_image_gray)
+    from adipose_tpu_torch.eval.tile_classification import run_tile_classification_evaluation
+
+    ev = PublicationEvaluator(
+        args.weights,
+        EvalConfig(batch_size=8, transfer_dtype=args.transfer_dtype, use_tta=args.use_tta,
+                   tta_mode=args.tta_mode, use_boundary_refinement=args.boundary_refine,
+                   refine_kernel=args.refine_kernel),
+        device=args.device)
+    pairs = load_validation_data(args.test_dataset)
+    _, preds = ev.predict_tiles([p for p, _ in pairs])
+    trues = [(read_image_gray(m) > 127).astype(np.float32) for _, m in pairs]
+    out = args.output or (ev.checkpoint_dir / "evaluation" / "tile_classification")
+    # --threshold is a percentage (the reference's); --coverage-threshold a fraction
+    coverage = (args.coverage_threshold if args.coverage_threshold is not None
+                else args.threshold / 100.0)
+    multi = args.multi_threshold
+    if isinstance(multi, str):
+        multi = [float(x) / 100.0 for x in multi.split(",") if x.strip()]
+    results = run_tile_classification_evaluation(preds, trues, out, coverage, multi,
+                                                 pixel_threshold=args.mask_threshold)
+    print(json.dumps(results, indent=2, default=float))
+    return results
+
+
+def cmd_eval_classifier(args) -> dict:
+    import csv
+
+    from adipose_tpu_torch.data.loader import ClassificationDataset
+    from adipose_tpu_torch.eval.classifier_eval import run_classifier_evaluation
+
+    if args.tta is not None:  # reference-style --tta none|basic|full
+        args.use_tta = args.tta != "none"
+        if args.use_tta:
+            args.tta_mode = args.tta
+    if not (args.test_dir or args.dataset_root):
+        raise SystemExit("eval-classifier requires --test-dir or --dataset-root")
+    weights_path = ckpt.resolve_weights_path(args.weights)
+    predict, state = _load_classifier(args.weights, args.device, args.percentile_norm,
+                                      args.percentile_low, args.percentile_high)
+    snapshots = [state] + [_classifier_state(extra, args.device) for extra in args.snapshot]
+    test_dir = Path(args.test_dir) if args.test_dir else Path(args.dataset_root) / args.split
+    ds = ClassificationDataset(test_dir, args.batch_size)
+    cal_ds = None
+    if args.calibration and args.calibration_val_root:
+        cal_ds = ClassificationDataset(
+            Path(args.calibration_val_root) / args.calibration_val_split, args.batch_size)
+    slide_map = None
+    if args.slide_map:
+        with open(args.slide_map, newline="") as f:
+            slide_map = {row["tile"]: row["slide_id"] for row in csv.DictReader(f)}
+    out = args.output or (weights_path.parent / "evaluation" /
+                          f"{test_dir.name}_tta_{args.tta_mode}")
+    results = run_classifier_evaluation(
+        predict, snapshots, ds, out,
+        tta_mode=args.tta_mode, use_tta=args.use_tta,
+        calibration=args.calibration, calibration_dataset=cal_ds,
+        save_examples=args.save_examples, num_examples=args.num_examples,
+        slide_map=slide_map, plots=args.save_plots,
+        percentile_norm_examples=args.percentile_norm_examples,
+        example_p_low=args.percentile_low, example_p_high=args.percentile_high,
+        device=args.device)
+    print(json.dumps({k: results[k] for k in ("roc_auc", "pr_auc", "best_threshold")},
+                     indent=2))
+    return results
+
+
+def cmd_classify(args) -> list[dict]:
+    import csv
+
+    import cv2
+
+    from adipose_tpu_torch.eval.evaluator import read_image_gray
+    from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
+
+    if args.bundle:
+        raise SystemExit("classify --bundle is not ported yet")
+    if not args.weights:
+        raise SystemExit("classify requires --weights")
+    # the reference inference CLI's preprocessing (classification_inference.py:
+    # 288-320): no percentile stretch unless asked
+    predict, state = _load_classifier(args.weights, args.device, args.percentile_norm)
+    if args.use_tta:
+        predict = make_classifier_tta_predict(predict, args.tta_mode)
+    in_dir = Path(args.input_dir)
+    exts = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
+    files = sorted(p for p in in_dir.glob(args.pattern)
+                   if p.is_file() and p.suffix.lower() in exts)
+    if not files and args.pattern == "**/*.jpg":
+        # only the default pattern widens to every image type
+        files = sorted(p for p in in_dir.rglob("*")
+                       if p.is_file() and p.suffix.lower() in exts)
+    if not files:
+        raise SystemExit(f"no images match pattern {args.pattern!r} under {in_dir}")
+
+    def read(p):
+        if args.use_grayscale:
+            return read_image_gray(str(p))
+        img = cv2.imread(str(p), cv2.IMREAD_COLOR)
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32)
+
+    rows = []
+    for i in range(0, len(files), args.batch_size):
+        chunk = files[i:i + args.batch_size]
+        batch = np.stack(thread_map(read, chunk))  # cv2 releases the GIL
+        n = batch.shape[0]
+        if n < args.batch_size:  # a fixed batch: repeat the last tile
+            batch = np.concatenate([batch, np.repeat(batch[-1:], args.batch_size - n, 0)])
+        probs = predict(state, torch.from_numpy(batch).to(args.device))[:n].cpu().numpy()
+        for p, pr in zip(chunk, probs):
+            bp = int(pr >= args.threshold)
+            rows.append({"image_path": str(p), "adipose_probability": float(pr),
+                         "binary_prediction": bp,
+                         "is_adipose": "adipose" if bp else "not_adipose"})
+
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.output_csv:
+        csv_path = Path(args.output_csv)
+        csv_path.parent.mkdir(parents=True, exist_ok=True)
+    else:  # predictions_{mode}{_tta}.csv (classification_inference.py:482-484)
+        mode_str = "grayscale" if args.use_grayscale else "rgb"
+        csv_path = out_dir / f"predictions_{mode_str}{'_tta' if args.use_tta else ''}.csv"
+    with csv_path.open("w", newline="") as f:
+        writer = csv.DictWriter(f, ["image_path", "adipose_probability", "binary_prediction",
+                                    "is_adipose"])
+        writer.writeheader()
+        writer.writerows(rows)
+    print(f"wrote {len(rows)} predictions to {csv_path}")
+
+    if args.save_visualizations:  # positive tiles annotated with their probability
+        viz = out_dir / "visualizations"
+        viz.mkdir(exist_ok=True)
+        for r in rows:
+            if not r["binary_prediction"]:
+                continue
+            img = cv2.imread(r["image_path"], cv2.IMREAD_COLOR)
+            if img is None:
+                continue
+            cv2.putText(img, f"p={r['adipose_probability']:.3f}", (8, 28),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.9, (0, 255, 255), 2)
+            cv2.imwrite(str(viz / Path(r["image_path"]).name), img)
+
+    probs_all = np.array([r["adipose_probability"] for r in rows])
+    n_pos = int(sum(r["binary_prediction"] for r in rows))
+    print(f"total {len(rows)} | adipose {n_pos} ({100 * n_pos / len(rows):.1f}%) | "
+          f"mean prob {probs_all.mean():.4f}")
+    return rows
 
 
 @contextlib.contextmanager

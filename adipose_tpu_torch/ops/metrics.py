@@ -1,7 +1,7 @@
 """Training and evaluation metrics (``adipose_tpu/ops/metrics.py``): the
 activation statistics of the U-Net trainer's validation step, the
-classifier trainer's ROC AUC and accuracy, and the evaluator's pixel
-metrics, threshold sweep and AUCs.
+classifier's ROC AUC, accuracy and compiled metric set, and the evaluator's
+pixel metrics, threshold sweep and AUCs.
 
 Behavioral spec from ``Segmentation/full_evaluation_enhanced.py``:
   * ``calculate_pixel_metrics`` (:720-785): thresholded confusion counts with
@@ -120,6 +120,23 @@ def binary_accuracy(y_true: torch.Tensor, y_pred: torch.Tensor,
                     threshold: float = 0.5) -> torch.Tensor:
     """The share of ``(y_pred > threshold) == y_true``, as float32."""
     return ((y_pred > threshold).to(torch.float32) == y_true).to(torch.float32).mean()
+
+
+def classifier_metrics(y_true: torch.Tensor, y_prob: torch.Tensor,
+                       threshold: float = 0.5) -> dict[str, torch.Tensor]:
+    """acc / auc / precision / recall over (N,) probabilities, the
+    classifier's compiled metric set
+    (``Classification/train_adipose_classifier_v0.py:372-378``); counts as in
+    :func:`confusion_counts`, empty denominators clamped to 1."""
+    p = y_prob > _f32(threshold, y_prob.device)
+    t = y_true.to(y_prob.device) > 0.5
+    tp, fp, fn, tn = (m.sum().to(torch.float32) for m in (p & t, p & ~t, ~p & t, ~p & ~t))
+    return {
+        "acc": (tp + tn) / (tp + fp + fn + tn).clamp_min(1.0),
+        "auc": roc_auc(y_prob, y_true),
+        "precision": tp / (tp + fp).clamp_min(1.0),
+        "recall": tp / (tp + fn).clamp_min(1.0),
+    }
 
 
 def pr_auc(pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:

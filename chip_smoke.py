@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
-training, classifier training and conv-chain layout probe once on one CUDA
-GPU and check its kernels.
+training, classifier training, classifier evaluation and conv-chain layout
+probe once on one CUDA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -70,7 +70,22 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      step (D at (32, 299, 299)); timings: the train step of each phase and
      the prep alone by CUDA events, P and D at the path's shapes, peak
      memory, the device's idle share over one epoch
-  9b. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
+  9b. classifier evaluation  with the classifier run of 9a and the slice's
+     U-Net run, through cli.main.main: ``adipose-torch eval-classifier`` at
+     its defaults (batch 64, full TTA = 512 views of 1024^2, percentile
+     norm, plots, examples) with isotonic calibration on a 64-tile val
+     split and weights_final as a snapshot, on 128 seeded test tiles over 4
+     slides (P and D once per chunk per snapshot per set); ``classify
+     --use-tta --tta-mode basic --percentile-norm`` at batch 32, and at its
+     defaults (no kernel); ``tile-classification-eval --use-tta
+     --multi-threshold`` on 7b's 8 tiles; ``evaluate-checkpoints`` over two
+     copies of the slice's run, then ``visualize-metrics``; each kernel path
+     against the same call under the plain versions (launches nothing;
+     probabilities within 1e-6, the same threshold, equal JSON); timings:
+     the TTA predict per chunk of 64 tiles, the flow by stage and its idle
+     share, P and D at (512, 1024^2) f32 bit-equal to plain, beside their
+     bounds
+  9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
      chain without it; each chain's device activities by name, and the
@@ -89,6 +104,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import tempfile
 import time
@@ -104,6 +120,7 @@ import adipose_tpu_torch.models.unet as unet_module
 import adipose_tpu_torch.ops.d4 as d4_module
 import adipose_tpu_torch.ops.normalize as normalize_module
 from adipose_tpu_torch.cli.main import _load_classifier, _load_segmenter, segment_batch
+from adipose_tpu_torch.core.hostio import thread_map
 from adipose_tpu_torch.models.convert import torch_inception_to_flax, torch_unet_to_flax
 from adipose_tpu_torch.models.inception import InceptionV3Classifier
 from adipose_tpu_torch.models.unet import DilatedUNet, diff_head_taps
@@ -1548,7 +1565,285 @@ def phase_train_classifier(dev, tmp: Path, smi: str) -> dict:
     print(f"train classifier: first steps through P and D vs the plain versions (prep "
           f"bit-equal; loss bound {CLS_LOSS_ATOL}, grads {CLS_GRAD_RTOL} of each leaf's max; "
           f"deterministic cuDNN): " + "; ".join(compared))
-    return {"launches": counts, "trainer": trainer, "start": start}
+    return {"launches": counts, "trainer": trainer, "start": start, "run": run}
+
+
+# ---- classifier evaluation and the rest of segmentation evaluation ----------------
+
+CLS_EVAL_TILES, CLS_EVAL_CAL_TILES = 128, 64  # test and calibration tiles, half per class
+CLS_EVAL_BATCH = 64  # eval-classifier's default --batch-size: 512 views under full TTA
+CLASSIFY_BATCH = 32  # classify's default --batch-size
+CHECKPOINTS_BOOTSTRAP = 200
+# Kernels vs plain versions on the classifier paths, cuDNN deterministic: P
+# and D are bit-equal, so both forwards see the same views; this bound leaves
+# no room for a fault beyond float32 rounding.
+CLS_EVAL_PROB_ATOL = 1e-6
+CLS_EVAL_ARTIFACTS = ("metrics.json", "predictions.csv", "roc_curve.png", "pr_curve.png",
+                      "calibration.png", "probability_histogram.png")
+
+
+def write_cls_eval_set(root: Path) -> Path:
+    """``{test,val}/{adipose,not_adipose}/*.jpg``, 1024^2: shifted copies of
+    eight blob tiles with fresh noise (adipose brighter blobs), named as
+    tiles of four slides; written by threads."""
+    rng = np.random.default_rng(SEED + 2)
+    bases = [training_tile(rng) for _ in range(8)]
+    jobs = []
+    for split, n in (("test", CLS_EVAL_TILES), ("val", CLS_EVAL_CAL_TILES)):
+        for cls, dim in (("adipose", 0), ("not_adipose", 45)):
+            (root / split / cls).mkdir(parents=True)
+            for i in range(n // 2):
+                img, mask = bases[int(rng.integers(0, 8))]
+                shift = tuple(int(v) for v in rng.integers(0, SIZE, 2))
+                noise = rng.integers(-12, 13, (SIZE, SIZE), dtype=np.int16)
+                tile = np.roll(img.astype(np.int16) - dim * mask + noise, shift, (0, 1))
+                jobs.append((root / split / cls / f"s{i % 4}_r{i}_c0.jpg",
+                             np.clip(tile, 0, 255).astype(np.uint8)))
+    thread_map(lambda job: cv2.imwrite(str(job[0]), job[1]), jobs)
+    return root
+
+
+def cls_predict_counts(predicts: int) -> dict[str, int]:
+    """Launches of ``predicts`` classifier TTA predicts with the stretch: P
+    and D once each."""
+    return {name: 0 for name in KERNELS} | {"percentile_normalize_u8": predicts,
+                                              "d4_transform_batch": predicts}
+
+
+def read_csv_rows(path: Path) -> list[dict]:
+    import csv
+
+    with path.open(newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_classifier_eval(dev, tmp: Path, cls_run: Path, seg_run: Path, smi: str) -> dict:
+    """``adipose-torch eval-classifier`` at its defaults with isotonic
+    calibration on a val split and a snapshot, ``classify`` with TTA and the
+    stretch and at its defaults, ``tile-classification-eval --use-tta
+    --multi-threshold``, ``evaluate-checkpoints`` then ``visualize-metrics``,
+    each through cli.main.main; the kernel paths against the same calls
+    under plain_kernels(); the timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adipose_tpu_torch.eval.classifier_eval import run_classifier_evaluation
+    from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
+
+    data = write_cls_eval_set(tmp / "cls_eval")
+    test_chunks = math.ceil(CLS_EVAL_TILES / CLS_EVAL_BATCH)
+    cal_chunks = math.ceil(CLS_EVAL_CAL_TILES / CLS_EVAL_BATCH)
+    snapshot = cls_run / "weights_final"
+    paths: dict[str, dict[str, int]] = {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+
+    def twice(name: str, argv: list[str], out_flag: str, out: Path, want: dict) -> float:
+        """The call through the kernels (counted, checked against ``want``)
+        and under plain_kernels() (nothing launched); its wall seconds."""
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.main(argv + [out_flag, str(out), "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[name] = launches()
+        if paths[name] != want:
+            raise AssertionError(f"{name} launches {paths[name]}, want {want}")
+        reset_launches()
+        with plain_kernels():
+            cli.main(argv + [out_flag, str(out) + "_plain", "--device", str(dev)])
+        if any(launches().values()):
+            raise AssertionError(f"plain {name} launched kernels: {launches()}")
+        return wall
+
+    try:
+        # eval-classifier at every default, isotonic calibration on the val
+        # split, weights_final as a second snapshot
+        ec_argv = ["eval-classifier", "--weights", str(cls_run), "--dataset-root", str(data),
+                   "--batch-size", str(CLS_EVAL_BATCH), "--calibration", "isotonic", "--calibration-val-root", str(data),
+                   "--snapshot", str(snapshot)]
+        out = tmp / "cls_eval_out"
+        ec_wall = twice("eval_classifier", ec_argv, "--output", out,
+                        cls_predict_counts(2 * (test_chunks + cal_chunks)))
+        ec_peak = torch.cuda.max_memory_allocated() / 1e9
+        missing = [a for a in CLS_EVAL_ARTIFACTS if not (out / a).exists()]
+        examples = sorted((out / "examples").rglob("*.jpg"))
+        metrics = json.loads((out / "metrics.json").read_text())
+        plain = json.loads((Path(str(out) + "_plain") / "metrics.json").read_text())
+        rows, rows_p = (read_csv_rows(d / "predictions.csv") for d in (out, Path(str(out) + "_plain")))
+        probs = np.array([float(r["probability"]) for r in rows])
+        probs_p = np.array([float(r["probability"]) for r in rows_p])
+        if missing or not examples or len(rows) != CLS_EVAL_TILES or \
+                metrics["calibration"]["method"] != "isotonic" or \
+                not all(math.isfinite(metrics[k]) for k in ("roc_auc", "pr_auc")):
+            raise AssertionError(f"eval-classifier: missing {missing}, {len(examples)} examples, "
+                                 f"{len(rows)} rows, metrics {json.dumps(metrics)[:300]}")
+        ec_err = float(np.abs(probs - probs_p).max())
+        if [r["file"] for r in rows] != [r["file"] for r in rows_p] or \
+                not ec_err <= CLS_EVAL_PROB_ATOL or \
+                metrics["best_threshold"] != plain["best_threshold"]:
+            raise AssertionError(f"eval-classifier kernels vs plain: probabilities {ec_err}, "
+                                 f"thresholds {metrics['best_threshold']} vs "
+                                 f"{plain['best_threshold']}")
+        print(f"eval_classifier: adipose-torch eval-classifier at its defaults (batch "
+              f"{CLS_EVAL_BATCH}, full TTA = {8 * CLS_EVAL_BATCH} views of {SIZE}^2, percentile "
+              f"norm, plots, examples) + isotonic calibration on {CLS_EVAL_CAL_TILES} val tiles "
+              f"+ 1 snapshot, {CLS_EVAL_TILES} test tiles: roc_auc {metrics['roc_auc']:.4f}, "
+              f"pr_auc {metrics['pr_auc']:.4f}, best threshold {metrics['best_threshold']:.2f}, "
+              f"val calibrated AUC {metrics['calibration']['val_calibrated_auc']:.4f}, "
+              f"{len(examples)} examples; launches {paths['eval_classifier']}; vs plain versions "
+              f"(deterministic cuDNN) calibrated probabilities max abs err {ec_err:.3g} (bound "
+              f"{CLS_EVAL_PROB_ATOL}), same threshold; {ec_wall:.2f} s incl. start-up, peak "
+              f"memory {ec_peak:.2f} GB [{smi}]")
+
+        # classify: TTA + stretch at its CLI batch through P and D, then at
+        # its defaults (no stretch, no TTA: no kernel)
+        cl_argv = ["classify", "--weights", str(cls_run), "--input-dir", str(data / "test"),
+                   "--batch-size", str(CLASSIFY_BATCH), "--use-tta", "--tta-mode", "basic", "--percentile-norm"]
+        cl_out = tmp / "classify_out"
+        twice("classify_tta", cl_argv, "--output-dir", cl_out,
+              cls_predict_counts(math.ceil(CLS_EVAL_TILES / CLASSIFY_BATCH)))
+        cl_rows, cl_rows_p = (read_csv_rows(d / "predictions_grayscale_tta.csv")
+                              for d in (cl_out, Path(str(cl_out) + "_plain")))
+        cl_err = max(abs(float(a["adipose_probability"]) - float(b["adipose_probability"]))
+                     for a, b in zip(cl_rows, cl_rows_p))
+        if len(cl_rows) != CLS_EVAL_TILES or not cl_err <= CLS_EVAL_PROB_ATOL or \
+                [r["binary_prediction"] for r in cl_rows] != \
+                [r["binary_prediction"] for r in cl_rows_p]:
+            raise AssertionError(f"classify --use-tta: {len(cl_rows)} rows, kernels vs plain "
+                                 f"{cl_err}")
+        reset_launches()
+        cli.main(["classify", "--weights", str(cls_run), "--input-dir", str(data / "test"),
+                  "--batch-size", str(CLASSIFY_BATCH), "--output-dir",
+                  str(tmp / "classify_default"), "--device", str(dev)])
+        if any(launches().values()) or \
+                len(read_csv_rows(tmp / "classify_default" / "predictions_grayscale.csv")) != \
+                CLS_EVAL_TILES:
+            raise AssertionError(f"classify at its defaults launched {launches()}")
+        print(f"classify: adipose-torch classify --use-tta --tta-mode basic --percentile-norm "
+              f"(batch {CLASSIFY_BATCH}, {4 * CLASSIFY_BATCH} views) over {CLS_EVAL_TILES} tiles: "
+              f"launches {paths['classify_tta']}; vs plain versions max abs err {cl_err:.3g} "
+              f"(bound {CLS_EVAL_PROB_ATOL}), same calls; at its defaults 0 launches")
+
+        # tile-classification-eval on the evaluate phase's 8 tiles: basic TTA
+        # at forward batch 8 = 4 predicts of 2 tiles
+        tiles_set = tmp / "eval" / "tiles" / "test"
+        tce_argv = ["tile-classification-eval", "--weights", str(seg_run), "--test-dataset",
+                    str(tiles_set), "--use-tta", "--multi-threshold"]
+        twice("tile_classification_eval", tce_argv, "--output", tmp / "tce",
+              tta_counts(math.ceil(EVAL_TILES / (8 // len(MODE_IDS["basic"])))))
+        name = "tile_classification_metrics.json"
+        tce, tce_p = (json.loads((d / name).read_text()) for d in
+                      (tmp / "tce", tmp / "tce_plain"))
+        if tce != tce_p or tce["n_tiles"] != EVAL_TILES or len(tce["threshold_sweep"]) != 5:
+            raise AssertionError(f"tile-classification-eval kernels vs plain: {tce} vs {tce_p}")
+        print(f"tile_classification_eval: adipose-torch tile-classification-eval --use-tta "
+              f"--multi-threshold on {EVAL_TILES} tiles: confusion {tce['confusion_matrix']} at "
+              f"coverage {tce['coverage_threshold']}, sweep of {len(tce['threshold_sweep'])}; "
+              f"launches {paths['tile_classification_eval']}; JSON equal to the plain run's")
+
+        # evaluate-checkpoints over two copies of the slice's run, then
+        # visualize-metrics
+        root = tmp / "checkpoints"
+        for d in ("20240101_000000_adipose_a", "20240102_000000_adipose_b"):
+            shutil.copytree(seg_run, root / d, ignore=shutil.ignore_patterns("evaluation"))
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(["evaluate-checkpoints", "--checkpoints-root", str(root), "--test-dataset",
+                  str(tiles_set), "--no-images", "--n-bootstrap", str(CHECKPOINTS_BOOTSTRAP),
+                  "--device", str(dev)])
+        torch.cuda.synchronize()
+        ck_wall = time.perf_counter() - t0
+        paths["evaluate_checkpoints"] = launches()
+        n_batches = math.ceil(EVAL_TILES / EVAL_CLI_BATCH)
+        want = {name: 0 for name in KERNELS} | {"fused_zscore_normalize": 2 * n_batches,
+                                                "diff_sigmoid_head": 2 * n_batches}
+        summary = json.loads((root / "batch_evaluation_summary.json").read_text())
+        if paths["evaluate_checkpoints"] != want or \
+                [r["status"] for r in summary] != ["success", "success"] or \
+                summary[0]["dice"] != summary[1]["dice"]:
+            raise AssertionError(f"evaluate-checkpoints launches {paths['evaluate_checkpoints']}"
+                                 f", want {want}; records {json.dumps(summary)[:400]}")
+        png = tmp / "checkpoint_comparison.png"
+        cli.main(["visualize-metrics", "--checkpoints-root", str(root), "--output", str(png)])
+        chart = cv2.imread(str(png))
+        if chart is None or chart.std() == 0:
+            raise AssertionError("visualize-metrics wrote no chart")
+        print(f"evaluate_checkpoints: adipose-torch evaluate-checkpoints over 2 copies of the "
+              f"slice's run, {EVAL_TILES} tiles, {CHECKPOINTS_BOOTSTRAP} resamples: both "
+              f"success, dice {summary[0]['dice']:.4f} both, threshold "
+              f"{summary[0]['threshold']:.2f}; launches {paths['evaluate_checkpoints']}; "
+              f"{ck_wall:.2f} s incl. start-up; visualize-metrics wrote a "
+              f"{chart.shape[1]}x{chart.shape[0]} chart [{smi}]")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+    # Timings: the TTA predict per chunk of 64 tiles, the flow by stage and
+    # its idle share, P and D at the flow's (512, 1024^2) float32 views.
+    predict, state = _load_classifier(cls_run, device=dev)
+    tta = make_classifier_tta_predict(predict, "full")
+    chunks = [torch.randint(0, 256, (CLS_EVAL_BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + i))
+              for i in range(3)]
+    chunk_ms = cuda_ms(lambda t: tta(state, t), chunks, 3)
+    del chunks
+    print(f"timing eval-classifier predict per chunk of {CLS_EVAL_BATCH} tiles (full TTA, "
+          f"{8 * CLS_EVAL_BATCH} views, P, D, resize, bf16 InceptionV3) by CUDA events: "
+          f"{chunk_ms:.2f} ms = {CLS_EVAL_BATCH * 1000.0 / chunk_ms:.2f} tiles/s [{smi}]")
+    from adipose_tpu_torch.data.loader import ClassificationDataset as Dataset
+
+    snapshots = [state, cli._classifier_state(snapshot, dev)]
+
+    def flow(out_dir: Path, timings: dict) -> None:
+        run_classifier_evaluation(predict, snapshots, Dataset(data / "test", CLS_EVAL_BATCH),
+                                  out_dir, calibration="isotonic",
+                                  calibration_dataset=Dataset(data / "val", CLS_EVAL_BATCH),
+                                  num_examples=10, percentile_norm_examples=True,
+                                  device=dev, timings=timings)
+        torch.cuda.synchronize()
+
+    stages: dict[str, float] = {}
+    flow(tmp / "cls_eval_timed", stages)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        flow(tmp / "cls_eval_profiled", {})
+        wall = time.perf_counter() - t0
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    print(f"timing eval-classifier flow ({CLS_EVAL_TILES} + {CLS_EVAL_CAL_TILES} tiles, 2 "
+          f"snapshots, isotonic) by stage, host clock: "
+          f"{json.dumps({k: round(v, 4) for k, v in stages.items()})} = "
+          f"{sum(stages.values()):.3f} s; under the profiler {wall:.3f} s wall, device busy "
+          f"{busy:.3f} s ({100 * (1 - busy / wall):.1f}% idle) [{smi}]")
+    del snapshots, state
+
+    n_views = 8 * CLS_EVAL_BATCH
+    x = torch.randint(0, 256, (n_views, SIZE, SIZE), dtype=torch.uint8, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED)).to(torch.float32)
+    ids = (torch.arange(n_views, device=dev) // CLS_EVAL_BATCH).to(torch.int32)
+    for name, kernel, plain_fn in (
+            ("percentile_normalize_u8", lambda t: percentile_normalize_u8(t),
+             lambda t: percentile_normalize_u8_plain(t)),
+            ("d4_transform_batch", lambda t: d4_transform_batch(t, ids),
+             lambda t: d4_transform_batch_plain(t, ids))):
+        if not torch.equal(bits(kernel(x)), bits(plain_fn(x))):
+            raise AssertionError(f"{name} ({n_views},{SIZE},{SIZE}) f32: not bit-equal to plain")
+        k_ms, p_ms = in_turns(plain_fn, kernel, [x], 5)
+        names = (("hist_kernel", "percentile_kernel", "apply_kernel", "emset")
+                 if name == "percentile_normalize_u8" else ("d4_kernel",))
+        # short sessions lose their last launches now and then: 20 calls
+        dev_ms = profiled_ms(kernel, [x], 20, names)
+        # f32 in and out (and D's ids); P's ~6 operations a pixel
+        b_ms, b_by = bound(2 * x.numel() * 4 + (n_views * 4 if name == "d4_transform_batch"
+                                                else 0),
+                           6 * x.numel() if name == "percentile_normalize_u8" else 0)
+        print(f"timing {name} ({n_views},{SIZE},{SIZE}) f32 (eval-classifier's views): "
+              f"bit-equal to plain; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms by CUDA events; "
+              f"device time {dev_ms} ms per call; bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / dev_ms if dev_ms else 0:.1f}% of it [{smi}]")
+        torch.cuda.empty_cache()
+    del x, ids
+    return paths
 
 
 def phase_cls_timing(dev, g, cls: dict, smi: str) -> dict:
@@ -1795,6 +2090,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         cls = phase_train_classifier(dev, Path(tmp), smi)
         paths["train_classifier"] = cls["launches"]
+        torch.cuda.empty_cache()
+        paths |= phase_classifier_eval(dev, Path(tmp), cls["run"], run, smi)
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

@@ -2,9 +2,12 @@
 
 ``adipose-torch segment`` (with ``--use-tta``), ``classify``, ``evaluate``,
 ``evaluate-checkpoints``, ``eval-classifier``, ``tile-classification-eval``,
-``visualize-metrics``, ``pipeline``, ``train-unet`` and ``train-classifier``
-are those subcommands of ``adipose`` (``adipose_tpu/cli/main.py``) on a torch
-device, with the same flags plus ``--device`` where a model runs. They read
+``visualize-metrics``, ``pipeline``, ``train-unet``, ``train-classifier``,
+the four dataset builds (``build-dataset``, ``build-test-dataset``,
+``build-class-dataset``, ``build-test-class-dataset``), ``run-pipeline``,
+``reconstruct`` and ``classification-overlay`` are those subcommands of
+``adipose`` (``adipose_tpu/cli/main.py``) on a torch device, with the same
+flags plus ``--device`` where device work runs. They read
 and write ``params.npz`` weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
@@ -81,6 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_evaluate(sub)
     _add_batch_evaluation(sub)
     _add_classifier_inference(sub)
+    _add_builds(sub)
+    _add_wsi_tools(sub)
     return parser
 
 
@@ -88,6 +93,293 @@ def _add_device(p, func) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; on 'cpu' the kernels' plain versions run")
     p.set_defaults(func=func)
+
+
+def _add_builds(sub) -> None:
+    """``build-dataset``, ``build-test-dataset``, ``build-class-dataset`` and
+    ``build-test-class-dataset``: every flag name and default of the
+    ``adipose`` subcommands plus ``--device`` (where the stain, QC and
+    grayscale run)."""
+    b = sub.add_parser("build-dataset", help="build segmentation tile dataset")
+    b.add_argument("--data-root", required=True)
+    b.add_argument("--input-images-dir", default=None,
+                   help="override for the Pseudocolored/ images dir")
+    b.add_argument("--input-masks-dir", default=None,
+                   help="override for the Masks/ JSON dir")
+    b.add_argument("--output-root", default=None,
+                   help="parent for the _build_<ts> dir (default: data root)")
+    b.add_argument("--out-parent", default=None,
+                   help="alias of --output-root")
+    # mask building (build_dataset.py DEFAULTS :159-198)
+    b.add_argument("--make-masks", dest="make_masks", action="store_true",
+                   default=True)
+    b.add_argument("--no-make-masks", dest="make_masks", action="store_false")
+    b.add_argument("--make-overlays", dest="make_overlays", action="store_true",
+                   default=False)
+    b.add_argument("--no-overlays", dest="make_overlays", action="store_false")
+    b.add_argument("--target-mask", default="fat",
+                   choices=["bubbles", "fat", "muscle"])
+    b.add_argument("--subtract", dest="subtract", action="store_true", default=True)
+    b.add_argument("--no-subtract", dest="subtract", action="store_false")
+    b.add_argument("--subtract-class", default="bubbles",
+                   choices=["bubbles", "fat", "muscle"])
+    b.add_argument("--subtract-masks-dir", default=None)
+    b.add_argument("--morph-close-k", type=int, default=0)
+    b.add_argument("--min-cc-px", type=int, default=0)
+    # tiling + filtering
+    b.add_argument("--tile-size", type=int, default=1024)
+    b.add_argument("--stride", type=int, default=1024)
+    b.add_argument("--white-th", dest="white_threshold", type=int, default=235)
+    b.add_argument("--white-ratio", dest="white_ratio_limit", type=float,
+                   default=0.70)
+    b.add_argument("--blur-th", dest="blurry_threshold", type=float, default=7.5)
+    b.add_argument("--min-mask-ratio", type=float, default=0.05)
+    b.add_argument("--keep-white", action="store_true", default=True)
+    b.add_argument("--drop-white", action="store_false", dest="keep_white")
+    b.add_argument("--keep-blurry", action="store_true", default=True)
+    b.add_argument("--drop-blurry", action="store_false", dest="keep_blurry")
+    b.add_argument("--jpeg-quality", type=int, default=100)
+    b.add_argument("--invert-input", action="store_true")
+    # split
+    b.add_argument("--val-ratio", type=float, default=0.20)
+    b.add_argument("--test-ratio", type=float, default=0.0)
+    b.add_argument("--seed", type=int, default=None)
+    b.add_argument("--split-by-slide", dest="split_by_slide",
+                   action="store_true", default=True)
+    b.add_argument("--no-split-by-slide", dest="split_by_slide",
+                   action="store_false")
+    b.add_argument("--include-test-set", dest="include_test_set",
+                   action="store_true", default=False)
+    b.add_argument("--no-include-test-set", dest="include_test_set",
+                   action="store_false")
+    b.add_argument("--exclude-test-duplicates", type=_bool, default=True)
+    b.add_argument("--channel", choices=["ecm", "pseudocolored"],
+                   default="pseudocolored")
+    # IO/perf
+    b.add_argument("--compression", choices=["auto", "lzw", "packbits", "none"],
+                   default="auto")
+    b.add_argument("--workers", type=int, default=None)
+    b.add_argument("--neg-pct", type=float, default=0.40)
+    # stain normalization
+    b.add_argument("--stain-normalize", dest="stain_normalize",
+                   action="store_true", default=True)
+    b.add_argument("--no-stain-normalize", dest="stain_normalize",
+                   action="store_false")
+    b.add_argument("--apply-stain-norm", type=_bool, default=None,
+                   help="alias of --stain-normalize/--no-stain-normalize")
+    b.add_argument("--reference-path", default=None)
+    b.add_argument("--reference-metadata", default=None)
+    # confidence
+    b.add_argument("--min-confidence-train", type=int, default=1,
+                   choices=[1, 2, 3])
+    b.add_argument("--min-confidence-val", "--min-confidence-eval",
+                   dest="min_confidence_val", type=int, default=2,
+                   choices=[1, 2, 3])
+    # test-split-specific
+    b.add_argument("--test-min-mask-ratio", type=float, default=0.0)
+    b.add_argument("--test-stride", type=int, default=1024)
+    b.add_argument("--test-neg-pct", type=float, default=1.0)
+    b.add_argument("--test-min-confidence", type=int, default=2,
+                   choices=[1, 2, 3])
+    b.add_argument("--test-include-white", action="store_true", default=False)
+    b.add_argument("--test-include-blurry", action="store_true", default=False)
+    b.add_argument("--include-ambiguous", action="store_true", default=False)
+    _add_device(b, cmd_build_dataset)
+
+    bt = sub.add_parser("build-test-dataset",
+                        help="build an ISOLATED test set from dedicated dirs "
+                             "(build_test_dataset.py)")
+    bt.add_argument("--images-dir", required=True)
+    bt.add_argument("--masks-dir", required=True,
+                    help="JSON annotation root (Masks/-style, per-class subdirs)")
+    bt.add_argument("--output-dir", required=True)
+    bt.add_argument("--target-mask", default="fat",
+                    choices=["bubbles", "fat", "muscle"])
+    bt.add_argument("--subtract", dest="subtract", action="store_true",
+                    default=False)  # TEST_DEFAULTS :115
+    bt.add_argument("--no-subtract", dest="subtract", action="store_false")
+    bt.add_argument("--subtract-class", default="bubbles",
+                    choices=["bubbles", "fat", "muscle"])
+    bt.add_argument("--morph-close-k", type=int, default=0)
+    bt.add_argument("--min-cc-px", type=int, default=0)
+    bt.add_argument("--tile-size", type=int, default=1024)
+    bt.add_argument("--stride", type=int, default=1024)
+    bt.add_argument("--white-threshold", type=int, default=235)
+    bt.add_argument("--white-ratio-limit", type=float, default=0.70)
+    bt.add_argument("--blurry-threshold", type=float, default=7.5)
+    bt.add_argument("--min-mask-ratio", type=float, default=0.0)
+    bt.add_argument("--include-white", dest="include_white",
+                    action="store_true", default=True)
+    bt.add_argument("--exclude-white", dest="include_white",
+                    action="store_false")
+    bt.add_argument("--include-blurry", dest="include_blurry",
+                    action="store_true", default=True)
+    bt.add_argument("--exclude-blurry", dest="include_blurry",
+                    action="store_false")
+    bt.add_argument("--include-ambiguous", dest="include_ambiguous",
+                    action="store_true", default=False)
+    bt.add_argument("--exclude-ambiguous", dest="include_ambiguous",
+                    action="store_false")
+    bt.add_argument("--jpeg-quality", type=int, default=100)
+    bt.add_argument("--compression", choices=["auto", "lzw", "packbits", "none"],
+                    default="auto")
+    bt.add_argument("--workers", type=int, default=None)
+    bt.add_argument("--neg-pct", type=float, default=1.0)
+    bt.add_argument("--min-confidence", type=int, choices=[1, 2, 3], default=2)
+    bt.add_argument("--seed", type=int, default=None)
+    bt.add_argument("--stain-normalize", dest="stain_normalize",
+                    action="store_true", default=True)
+    bt.add_argument("--no-stain-normalize", dest="stain_normalize",
+                    action="store_false")
+    bt.add_argument("--reference-metadata", default=None)
+    bt.add_argument("--reference-path", default=None)
+    _add_device(bt, cmd_build_test_dataset)
+
+    c = sub.add_parser("build-class-dataset", help="build classification tile dataset")
+    c.add_argument("--data-root", required=True)
+    c.add_argument("--tile-size", type=int, default=1024)
+    c.add_argument("--stride", type=int, default=1024)
+    c.add_argument("--adipose-threshold", type=float, default=0.025)
+    c.add_argument("--channel", choices=["pseudocolored", "ecm"], default="pseudocolored")
+    c.add_argument("--val-ratio", type=float, default=0.20)
+    c.add_argument("--test-ratio", type=float, default=0.0)
+    c.add_argument("--white-threshold", type=int, default=245)
+    c.add_argument("--white-ratio-limit", type=float, default=0.70)
+    c.add_argument("--blurry-threshold", type=float, default=7.5)
+    c.add_argument("--min-confidence-train", type=int, choices=[1, 2, 3],
+                   default=1)
+    c.add_argument("--min-confidence-val", type=int, choices=[1, 2, 3],
+                   default=2)
+    c.add_argument("--include-ambiguous", type=_bool, default=False)
+    c.add_argument("--jpeg-quality", type=int, default=100)
+    c.add_argument("--seed", type=int, default=None)
+    c.add_argument("--keep-white", type=_bool, default=True)
+    c.add_argument("--keep-blurry", type=_bool, default=True)
+    c.add_argument("--balance-classes", dest="balance_classes",
+                   action="store_true", default=True)
+    c.add_argument("--no-balance", dest="balance_classes", action="store_false")
+    c.add_argument("--target-adipose-ratio", "--neg-pct", dest="neg_pct",
+                   type=float, default=0.40,
+                   help="adipose share of the balanced set "
+                        "(build_class_dataset.py:155-156)")
+    c.add_argument("--stain-normalize", type=_bool, default=None)
+    c.add_argument("--apply-stain-norm", type=_bool, default=None,
+                   help="alias of --stain-normalize")
+    c.add_argument("--reference-path", default=None)
+    c.add_argument("--reference-metadata", default=None)
+    c.add_argument("--exclude-test-duplicates", type=_bool, default=True)
+    c.add_argument("--out-parent", "--output-root", dest="out_parent",
+                   default=None)
+    _add_device(c, cmd_build_class_dataset)
+
+    btc = sub.add_parser("build-test-class-dataset",
+                         help="build an ISOLATED classification test set "
+                              "(build_test_class_dataset.py)")
+    btc.add_argument("--images-dir", required=True)
+    btc.add_argument("--masks-dir", required=True)
+    btc.add_argument("--output-dir", required=True)
+    btc.add_argument("--tile-size", type=int, default=1024)
+    btc.add_argument("--stride", type=int, default=1024)
+    btc.add_argument("--adipose-threshold", type=float, default=0.025)
+    btc.add_argument("--white-threshold", type=int, default=245)
+    btc.add_argument("--white-ratio-limit", type=float, default=0.70)
+    btc.add_argument("--blurry-threshold", type=float, default=7.5)
+    btc.add_argument("--keep-white", type=_bool, default=True)
+    btc.add_argument("--keep-blurry", type=_bool, default=True)
+    btc.add_argument("--jpeg-quality", type=int, default=100)
+    btc.add_argument("--min-confidence", type=int, choices=[1, 2, 3], default=2)
+    btc.add_argument("--include-ambiguous", type=_bool, default=False)
+    btc.add_argument("--stain-normalize", type=_bool, required=True,
+                     help="required true/false — the reference forces an "
+                          "explicit choice (build_test_class_dataset.py:145)")
+    btc.add_argument("--reference-metadata", default=None)
+    btc.add_argument("--reference-path", default=None)
+    btc.add_argument("--seed", type=int, default=None)
+    _add_device(btc, cmd_build_test_class_dataset)
+
+
+def _add_wsi_tools(sub) -> None:
+    """``reconstruct``, ``classification-overlay`` and ``run-pipeline``: every
+    flag name and default of the ``adipose`` subcommands plus ``--device``
+    where a model runs (not ``classification-overlay``, which is host cv2)."""
+    r = sub.add_parser("reconstruct", help="rebuild full slides from tiles")
+    r.add_argument("--weights", required=True)
+    r.add_argument("--images-dir", required=True)
+    r.add_argument("--masks-dir", default=None)
+    r.add_argument("--output-dir", required=True)
+    r.add_argument("--tile-size", type=int, default=1024)
+    r.add_argument("--stride", type=int, default=1024)
+    r.add_argument("--min-coverage", type=float, default=0.9)
+    r.add_argument("--data-root", default=None)
+    r.add_argument("--batch-size", type=int, default=16)
+    r.add_argument("--use-tta", action="store_true",
+                   help="D4 TTA per tile (reconstruct_full_images.py:903)")
+    r.add_argument("--tta-mode", choices=["minimal", "basic", "full"],
+                   default="basic")
+    r.add_argument("--boundary-refine", action="store_true")
+    r.add_argument("--refine-kernel", type=int, default=5)
+    r.add_argument("--threshold", type=float, default=0.5)
+    r.add_argument("--blend-mode", choices=["gaussian", "linear", "none"],
+                   default="gaussian")
+    r.add_argument("--max-tiles", type=int, default=None,
+                   help="limit each slide to its top-left NxN tile grid "
+                        "(reconstruct_full_images.py:663-678)")
+    r.add_argument("--save-masks", dest="save_masks", action="store_true",
+                   default=True)
+    r.add_argument("--no-save-masks", dest="save_masks", action="store_false")
+    r.add_argument("--save-overlays", action="store_true")
+    r.add_argument("--save-comparisons", action="store_true")
+    r.add_argument("--save-metrics", action="store_true",
+                   help="accepted for parity; per-slide metrics.json is "
+                        "always written when ground truth exists")
+    _add_device(r, cmd_reconstruct)
+
+    ov = sub.add_parser("classification-overlay",
+                        help="render TP/FP/FN/TN tile overlay on a WSI")
+    ov.add_argument("--wsi", default=None, help="a single WSI file")
+    ov.add_argument("--wsi-dir", default=None,
+                    help="directory of WSIs — one overlay per slide whose "
+                         "predictions match its stem "
+                         "(reconstruct_wsi_classification.py:97)")
+    ov.add_argument("--tiles-dir", default=None,
+                    help="accepted for parity; tile coords come from the "
+                         "prediction filenames")
+    ov.add_argument("--predictions-csv", required=True)
+    ov.add_argument("--metrics-json", default=None,
+                    help="take the threshold from its best_threshold")
+    ov.add_argument("--output", default=None, help="output file (single-WSI)")
+    ov.add_argument("--output-dir", default=None,
+                    help="output directory (multi-WSI)")
+    ov.add_argument("--tile-size", type=int, default=1024)
+    ov.add_argument("--combine", "--combine-patches", dest="combine",
+                    type=int, default=3)
+    ov.add_argument("--overlay-alpha", type=float, default=0.4)
+    ov.add_argument("--downsample", type=int, default=8)
+    ov.add_argument("--save-original", dest="save_original",
+                    action="store_true", default=False)
+    ov.add_argument("--no-save-original", dest="save_original",
+                    action="store_false")
+    ov.add_argument("--threshold", type=float, default=None,
+                    help="default: metrics-json best_threshold, else 0.5")
+    ov.set_defaults(func=cmd_classification_overlay)
+
+    rp = sub.add_parser("run-pipeline",
+                        help="build → train → val-eval → test-eval "
+                             "(run_complete_pipeline.sh analog)")
+    rp.add_argument("--data-root", required=True)
+    rp.add_argument("--epochs-phase1", type=int, default=50)
+    rp.add_argument("--epochs-phase2", type=int, default=100)
+    rp.add_argument("--batch-size", type=int, default=2)
+    rp.add_argument("--skip-build", action="store_true")
+    rp.add_argument("--use-tta", action="store_true")
+    rp.add_argument("--min-train-tiles", type=int, default=10)
+    rp.add_argument("--tile-size", type=int, default=1024)
+    rp.add_argument("--stride", type=int, default=None,
+                    help="build stride (default: tile size)")
+    rp.add_argument("--init-nb", type=int, default=44)
+    rp.add_argument("--val-ratio", type=float, default=0.15)
+    rp.add_argument("--test-ratio", type=float, default=0.15)
+    _add_device(rp, cmd_run_pipeline)
 
 
 def _add_eval_opts(p) -> None:
@@ -880,6 +1172,343 @@ def cmd_classify(args) -> list[dict]:
     print(f"total {len(rows)} | adipose {n_pos} ({100 * n_pos / len(rows):.1f}%) | "
           f"mean prob {probs_all.mean():.4f}")
     return rows
+
+
+def _seed(args) -> int:
+    from adipose_tpu_torch.core.seeding import get_project_seed
+
+    return args.seed if args.seed is not None else get_project_seed()
+
+
+def cmd_build_dataset(args):
+    from adipose_tpu_torch.core.config import DataBuildConfig
+    from adipose_tpu_torch.data.tiling import SegmentationDatasetBuilder
+
+    if args.subtract and args.subtract_class == args.target_mask:
+        raise SystemExit(f"cannot subtract '{args.subtract_class}' from itself "
+                         f"(use --no-subtract)")
+    stain = (args.apply_stain_norm if args.apply_stain_norm is not None
+             else args.stain_normalize)
+    cfg = DataBuildConfig(
+        tile_size=args.tile_size, stride=args.stride,
+        min_confidence_train=args.min_confidence_train,
+        min_confidence_eval=args.min_confidence_val,
+        white_threshold=args.white_threshold,
+        white_ratio=args.white_ratio_limit,
+        blur_threshold=args.blurry_threshold,
+        negative_fraction=args.neg_pct, ambiguous_high=args.min_mask_ratio,
+        val_fraction=args.val_ratio, test_fraction=args.test_ratio,
+        apply_stain_norm=stain, seed=_seed(args),
+        make_masks=args.make_masks, make_overlays=args.make_overlays,
+        target_mask=args.target_mask, subtract=args.subtract,
+        subtract_class=args.subtract_class,
+        subtract_masks_dir=args.subtract_masks_dir,
+        morph_close_k=args.morph_close_k, min_cc_px=args.min_cc_px,
+        jpeg_quality=args.jpeg_quality, invert_input=args.invert_input,
+        keep_white=args.keep_white, keep_blurry=args.keep_blurry,
+        compression=args.compression, workers=args.workers,
+        split_by_slide=args.split_by_slide,
+        include_test_set=args.include_test_set,
+        exclude_test_duplicates=args.exclude_test_duplicates,
+        channel=args.channel,
+        reference_path=args.reference_path,
+        reference_metadata=args.reference_metadata,
+        test_min_mask_ratio=args.test_min_mask_ratio,
+        test_stride=args.test_stride, test_neg_pct=args.test_neg_pct,
+        test_min_confidence=args.test_min_confidence,
+        test_include_white=args.test_include_white,
+        test_include_blurry=args.test_include_blurry,
+        include_ambiguous=args.include_ambiguous,
+    )
+    out_parent = args.output_root or args.out_parent or args.data_root
+    builder = SegmentationDatasetBuilder(cfg, out_parent=out_parent, device=args.device)
+    root = builder.build(args.data_root, images_dir=args.input_images_dir,
+                         masks_dir=args.input_masks_dir)
+    print(f"build complete: {root}")
+    print((root / "build_summary.txt").read_text())
+    return builder
+
+
+def cmd_build_test_dataset(args):
+    from adipose_tpu_torch.core.config import DataBuildConfig
+    from adipose_tpu_torch.data.tiling import SegmentationDatasetBuilder
+
+    cfg = DataBuildConfig(
+        tile_size=args.tile_size, stride=args.stride,
+        test_stride=args.stride,
+        target_mask=args.target_mask, subtract=args.subtract,
+        subtract_class=args.subtract_class,
+        morph_close_k=args.morph_close_k, min_cc_px=args.min_cc_px,
+        white_threshold=args.white_threshold,
+        white_ratio=args.white_ratio_limit,
+        blur_threshold=args.blurry_threshold,
+        test_min_mask_ratio=args.min_mask_ratio,
+        test_include_white=args.include_white,
+        test_include_blurry=args.include_blurry,
+        include_ambiguous=args.include_ambiguous,
+        jpeg_quality=args.jpeg_quality, compression=args.compression,
+        workers=args.workers, test_neg_pct=args.neg_pct,
+        min_confidence_train=args.min_confidence,
+        test_min_confidence=args.min_confidence,
+        apply_stain_norm=args.stain_normalize,
+        reference_metadata=args.reference_metadata,
+        reference_path=args.reference_path,
+        seed=_seed(args),
+        val_fraction=0.0, test_fraction=0.0,
+    )
+    builder = SegmentationDatasetBuilder(cfg, out_parent=args.output_dir, device=args.device)
+    root = builder.build(args.images_dir, images_dir=args.images_dir,
+                         masks_dir=args.masks_dir, mark_all_test=True)
+    print(f"test-set build complete: {root}")
+    print((root / "build_summary.txt").read_text())
+    return builder
+
+
+def cmd_build_class_dataset(args):
+    from adipose_tpu_torch.core.config import DataBuildConfig
+    from adipose_tpu_torch.data.class_builder import ClassificationDatasetBuilder
+
+    stain = next((v for v in (args.apply_stain_norm, args.stain_normalize)
+                  if v is not None), False)
+    cfg = DataBuildConfig(
+        tile_size=args.tile_size, stride=args.stride,
+        adipose_coverage_threshold=args.adipose_threshold,
+        channel=args.channel, negative_fraction=args.neg_pct,
+        apply_stain_norm=stain,
+        val_fraction=args.val_ratio, test_fraction=args.test_ratio,
+        white_threshold=args.white_threshold,
+        white_ratio=args.white_ratio_limit,
+        blur_threshold=args.blurry_threshold,
+        min_confidence_train=args.min_confidence_train,
+        min_confidence_eval=args.min_confidence_val,
+        include_ambiguous=args.include_ambiguous,
+        jpeg_quality=args.jpeg_quality, seed=_seed(args),
+        keep_white=args.keep_white, keep_blurry=args.keep_blurry,
+        balance_classes=args.balance_classes,
+        reference_path=args.reference_path,
+        reference_metadata=args.reference_metadata,
+        exclude_test_duplicates=args.exclude_test_duplicates,
+    )
+    builder = ClassificationDatasetBuilder(
+        cfg, out_parent=args.out_parent or args.data_root, device=args.device)
+    root = builder.build(args.data_root)
+    print(f"build complete: {root}")
+    return builder
+
+
+def cmd_build_test_class_dataset(args):
+    from adipose_tpu_torch.core.config import DataBuildConfig
+    from adipose_tpu_torch.data.class_builder import ClassificationDatasetBuilder
+
+    cfg = DataBuildConfig(
+        tile_size=args.tile_size, stride=args.stride, test_stride=args.stride,
+        adipose_coverage_threshold=args.adipose_threshold,
+        white_threshold=args.white_threshold,
+        white_ratio=args.white_ratio_limit,
+        blur_threshold=args.blurry_threshold,
+        keep_white=args.keep_white, keep_blurry=args.keep_blurry,
+        jpeg_quality=args.jpeg_quality,
+        min_confidence_train=args.min_confidence,
+        min_confidence_eval=args.min_confidence,
+        include_ambiguous=args.include_ambiguous,
+        apply_stain_norm=args.stain_normalize,
+        reference_metadata=args.reference_metadata,
+        reference_path=args.reference_path,
+        seed=_seed(args),
+        balance_classes=False,  # isolated test sets keep every tile
+        val_fraction=0.0, test_fraction=0.0,
+    )
+    builder = ClassificationDatasetBuilder(cfg, out_parent=args.output_dir, device=args.device)
+    root = builder.build(args.images_dir, images_dir=args.images_dir,
+                         masks_dir=args.masks_dir, mark_all_test=True)
+    print(f"test class-set build complete: {root}")
+    return builder
+
+
+def cmd_reconstruct(args) -> dict:
+    from adipose_tpu_torch.wsi.reconstruct import reconstruct_all_slides
+
+    predict, params, _, _ = _load_segmenter(args.weights, device=args.device)
+    batch = args.batch_size
+    if args.use_tta:
+        from adipose_tpu_torch.eval.tta import make_tta_predict
+        from adipose_tpu_torch.ops.d4 import MODE_IDS
+
+        predict = make_tta_predict(predict, args.tta_mode)
+        # keep the device batch at --batch-size: the views fold into it
+        batch = max(1, batch // len(MODE_IDS.get(args.tta_mode, MODE_IDS["basic"])))
+    log = reconstruct_all_slides(
+        args.images_dir, args.masks_dir, args.output_dir, predict, params,
+        tile_size=args.tile_size, stride=args.stride,
+        min_coverage=args.min_coverage, threshold=args.threshold,
+        data_root=args.data_root,
+        batch_size=batch, use_refinement=args.boundary_refine,
+        blend_mode=args.blend_mode, refine_kernel=args.refine_kernel,
+        max_tiles=args.max_tiles, save_masks=args.save_masks,
+        save_overlays=args.save_overlays,
+        save_comparisons=args.save_comparisons,
+        device=args.device,
+    )
+    print(json.dumps({"slides": list(log["slides"]), "skipped": log["skipped"]},
+                     indent=2))
+    return log
+
+
+# pandas' read_csv default missing-value strings: such a cell counts as absent
+_NA_STRINGS = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+                         "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None",
+                         "n/a", "nan", "null"})
+
+
+def cmd_classification_overlay(args):
+    import csv
+    import re
+
+    import cv2
+
+    from adipose_tpu_torch.wsi.overlay import create_overlay
+
+    threshold = args.threshold
+    if threshold is None and args.metrics_json:
+        threshold = float(json.loads(Path(args.metrics_json).read_text())
+                          .get("best_threshold", 0.5))
+    if threshold is None:
+        threshold = 0.5
+
+    with open(args.predictions_csv, newline="") as f:
+        table = list(csv.DictReader(f))
+
+    # three CSV dialects: the reference evaluator's (path/label/prob,
+    # reconstruct_wsi_classification.py:223-225), the inference CLI's
+    # (image_path/adipose_probability/binary_prediction), and bare
+    # file/probability/prediction
+    def col(row, *names, default=None):
+        for nm in names:
+            if row.get(nm) is not None and row[nm] not in _NA_STRINGS:
+                return row[nm]
+        return default
+
+    results = []
+    for row in table:
+        fname = Path(str(col(row, "path", "image_path", "file"))).name
+        prob = col(row, "prob", "adipose_probability", "probability")
+        pred = (int(float(prob) >= threshold) if prob is not None
+                else int(float(col(row, "binary_prediction", "prediction", default=0))))
+        label = int(float(col(row, "label", default=pred)))
+        results.append((fname, label, pred))
+
+    def render(wsi_path: Path, out_path: Path, subset):
+        wsi = cv2.imread(str(wsi_path), cv2.IMREAD_UNCHANGED)
+        if wsi is None:
+            print(f"skipping unreadable {wsi_path}")
+            return
+        out = create_overlay(wsi, subset, args.tile_size, args.combine,
+                             alpha=args.overlay_alpha,
+                             downsample=args.downsample)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(out_path), out)
+        if args.save_original:
+            ds = wsi[:: args.downsample, :: args.downsample]
+            cv2.imwrite(str(out_path.parent / f"{wsi_path.stem}_original.png"), ds)
+        print(f"wrote {out_path}")
+
+    if args.wsi_dir:
+        out_dir = Path(args.output_dir or args.output or ".")
+        exts = (".tif", ".tiff", ".png", ".jpg", ".jpeg")
+        for wsi_path in sorted(Path(args.wsi_dir).iterdir()):
+            if wsi_path.suffix.lower() not in exts or not wsi_path.is_file():
+                continue
+            # exact slide match: stem followed by only coordinate suffixes;
+            # a bare prefix test misassigns 'S1_10' tiles to slide 'S1_1'
+            pat = re.compile(
+                rf"^{re.escape(wsi_path.stem)}"
+                rf"(_x\d+_y\d+(_w\d+_h\d+)?)?(_grid_\d+x\d+_tile_\d+)?"
+                rf"_r\d+_c\d+$"
+            )
+            subset = [r for r in results if pat.match(Path(r[0]).stem)]
+            if not subset:
+                continue
+            render(wsi_path, out_dir / f"{wsi_path.stem}_overlay.png", subset)
+    elif args.wsi:
+        out = Path(args.output or
+                   (Path(args.output_dir or ".") /
+                    f"{Path(args.wsi).stem}_overlay.png"))
+        render(Path(args.wsi), out, results)
+    else:
+        raise SystemExit("classification-overlay requires --wsi or --wsi-dir")
+
+
+def cmd_run_pipeline(args) -> dict:
+    """Phase orchestration with dataset validation and a timing summary
+    (``Segmentation/run_complete_pipeline.sh`` phases :195-516): build,
+    train, val-set evaluation with the threshold search, test-set
+    evaluation at that threshold, in one process."""
+    from adipose_tpu_torch.core.config import (DataBuildConfig, EvalConfig, TrainConfig,
+                                               UNetConfig)
+    from adipose_tpu_torch.data.tiling import (SegmentationDatasetBuilder,
+                                               find_most_recent_build_dir)
+    from adipose_tpu_torch.eval.evaluator import PublicationEvaluator
+    from adipose_tpu_torch.train.trainer_unet import UNetTrainer
+
+    timings = {}
+    data_root = Path(args.data_root)
+
+    if args.skip_build:
+        build_root = (
+            data_root if (data_root / "dataset").exists()
+            else find_most_recent_build_dir(data_root)
+        )
+    else:
+        t0 = time.time()
+        build_cfg = DataBuildConfig(
+            tile_size=args.tile_size, stride=args.stride or args.tile_size,
+            val_fraction=args.val_ratio, test_fraction=args.test_ratio,
+        )
+        build_root = SegmentationDatasetBuilder(
+            build_cfg, out_parent=data_root, device=args.device
+        ).build(data_root)
+        timings["build_s"] = time.time() - t0
+
+    # dataset validation (run_complete_pipeline.sh:111-167)
+    n_train = len(list((build_root / "dataset" / "train" / "images").glob("*.jpg")))
+    if n_train < args.min_train_tiles:
+        raise SystemExit(
+            f"dataset validation failed: {n_train} train tiles < {args.min_train_tiles}"
+        )
+
+    t0 = time.time()
+    trainer = UNetTrainer(
+        build_root, TrainConfig(batch_size=args.batch_size),
+        UNetConfig(tile_size=args.tile_size, init_nb=args.init_nb),
+        device=args.device,
+    )
+    train_result = trainer.train(args.epochs_phase1, args.epochs_phase2)
+    timings["train_s"] = time.time() - t0
+    ckpt_dir = train_result["checkpoint_dir"]
+
+    cfg = EvalConfig(use_tta=args.use_tta, optimize_threshold=True)
+    t0 = time.time()
+    ev = PublicationEvaluator(ckpt_dir, cfg, device=args.device)
+    val_results = ev.evaluate(build_root / "dataset" / "val", "val")
+    timings["val_eval_s"] = time.time() - t0
+
+    t0 = time.time()
+    test_cfg = EvalConfig(use_tta=args.use_tta, optimize_threshold=False,
+                          threshold=val_results["optimal_threshold"])
+    test_results = PublicationEvaluator(ckpt_dir, test_cfg, device=args.device).evaluate(
+        build_root / "dataset" / "test", "test"
+    )
+    timings["test_eval_s"] = time.time() - t0
+
+    summary = {
+        "checkpoint_dir": ckpt_dir,
+        "val_dice": val_results["metrics"]["dice_score"]["mean"],
+        "test_dice": test_results["metrics"]["dice_score"]["mean"],
+        "optimal_threshold": val_results["optimal_threshold"],
+        "timings": timings,
+    }
+    print(json.dumps(summary, indent=2))
+    return summary
 
 
 @contextlib.contextmanager

@@ -1,5 +1,5 @@
 """Dataclass configs, framework-free: copies of ``UNetConfig``,
-``ClassifierConfig``, ``TrainConfig`` and ``EvalConfig`` from
+``ClassifierConfig``, ``TrainConfig``, ``EvalConfig`` and ``DataBuildConfig`` from
 ``adipose_tpu/core/config.py``.
 
 ``from_json`` ignores keys it does not know, so a config written by the JAX
@@ -133,3 +133,63 @@ class EvalConfig(_JsonMixin):
     save_overlays: bool = False
     n_positive: int = 120
     n_negative: int = 30
+
+
+@dataclass
+class DataBuildConfig(_JsonMixin):
+    """Dataset-build DEFAULTS (``Segmentation/build_dataset.py:159-198``). The
+    same fields and defaults as the JAX package's, so ``build_log.json``'s
+    ``config`` block is the same; the device is the builder's argument."""
+
+    tile_size: int = 1024
+    stride: int = 1024
+    min_confidence_train: int = 1
+    min_confidence_eval: int = 2  # reference name: min_confidence_val
+    white_threshold: int = 235
+    white_ratio: float = 0.70
+    blur_threshold: float = 7.5  # Laplacian variance (classify_tiles_batch :1253)
+    ambiguous_low: float = 0.0
+    ambiguous_high: float = 0.05  # 0<ratio<min_mask_ratio tiles excluded (:1571)
+    negative_fraction: float = 0.40  # negatives resampled to 40% (:1589-1632)
+    val_fraction: float = 0.20  # DEFAULTS table :175
+    test_fraction: float = 0.0  # internal test off; external test/ dir instead
+    apply_stain_norm: bool = False
+    seed: int = 865
+    # Classification-dataset extras (build_class_dataset.py)
+    adipose_coverage_threshold: float = 0.025  # >=2.5% mask coverage => adipose (:683-690)
+    channel: str = "pseudocolored"  # 'ecm' | 'pseudocolored' (:183-204)
+    balance_classes: bool = True  # --balance-classes/--no-balance (:151-154)
+    # Mask building (DEFAULTS :159-198)
+    make_masks: bool = True
+    make_overlays: bool = False
+    target_mask: str = "fat"  # CLASS_NAMES = bubbles|fat|muscle (:152)
+    subtract: bool = True
+    subtract_class: str = "bubbles"
+    subtract_masks_dir: str | None = None
+    morph_close_k: int = 0  # 0 disables (:166)
+    min_cc_px: int = 0  # 0 disables (:167)
+    # Tile IO / handling
+    jpeg_quality: int = 100
+    invert_input: bool = False
+    keep_white: bool = True  # QA-route, don't discard (:182-183; dataset
+    keep_blurry: bool = True  # membership needs 'tissue' either way, :1536-1546)
+    compression: str = "auto"  # TIFF: auto|lzw|packbits|none
+    workers: int | None = None  # mask rasterization parallelism (None = cpu-1)
+    # Split / discovery
+    split_by_slide: bool = True
+    include_test_set: bool = False  # pick up Pseudocolored/test/ (:186)
+    exclude_test_duplicates: bool = True
+    reference_path: str | None = None  # stain reference image
+    reference_metadata: str | None = None  # stain reference metadata JSON
+    # Test-split-specific knobs (:191-197)
+    test_min_mask_ratio: float = 0.0
+    test_stride: int = 1024
+    test_neg_pct: float = 1.0
+    test_min_confidence: int = 2
+    test_include_white: bool = False
+    test_include_blurry: bool = False
+    include_ambiguous: bool = False  # test-only: ambiguous kept as zero-mask negatives
+    # Classification-build QC semantics (build_class_dataset.py:692-702):
+    # quality filters apply only to NEGATIVES (positives always kept) and
+    # kept white/blurry tiles stay IN the dataset instead of QA-routing
+    protect_positives: bool = False

@@ -87,6 +87,10 @@ def _fit_logistic(x: np.ndarray, y: np.ndarray) -> tuple[float, float]:
     not penalised), solved to its optimum in float64 by Newton's method
     with a backtracking line search (quadratic convergence: a few steps)."""
     x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    if not np.isfinite(x).all():
+        # sklearn's input check, which the reference's fit runs first: a
+        # probability of exactly 0 has the logit -inf
+        raise ValueError("Input X contains infinity or NaN")
     if np.unique(y).size < 2:
         raise ValueError("logistic calibration needs samples of both classes")
 

@@ -21,9 +21,7 @@ metrics (scipy EDT) run on the host.
 
 from __future__ import annotations
 
-import csv
 import json
-import math
 import os
 import time
 from collections import defaultdict
@@ -35,7 +33,7 @@ import numpy as np
 import torch
 
 from adipose_tpu_torch.core.config import EvalConfig, UNetConfig
-from adipose_tpu_torch.core.hostio import thread_map
+from adipose_tpu_torch.core.hostio import thread_map, write_csv
 from adipose_tpu_torch.eval.batch_eval import build_eval_config_string
 from adipose_tpu_torch.eval.boundary import BoundaryRefiner, calculate_boundary_metrics
 from adipose_tpu_torch.eval.bootstrap import safe_bootstrap_ci
@@ -125,17 +123,6 @@ def _boundary_metrics_all(preds: list, trues: list, threshold: float) -> list:
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         return list(ex.map(lambda pt: calculate_boundary_metrics(pt[0], pt[1], threshold),
                            zip(preds, trues)))
-
-
-def _write_csv(path: Path, rows: list[dict]) -> None:
-    """Rows under their first row's keys; NaN as an empty field, as pandas
-    writes it."""
-    with path.open("w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(list(rows[0]))
-        for row in rows:
-            writer.writerow(["" if isinstance(v, float) and math.isnan(v) else v
-                             for v in row.values()])
 
 
 class PublicationEvaluator:
@@ -351,7 +338,7 @@ class PublicationEvaluator:
 
     def _write_artifacts(self, out: Path, dataset_name: str, results: dict, tile_rows) -> None:
         (out / "metrics.json").write_text(json.dumps(results, indent=2))
-        _write_csv(out / "predictions.csv", tile_rows)
+        write_csv(out / "predictions.csv", tile_rows)
         rows = []
         for k, name in DISPLAY_NAMES.items():
             m = results["metrics"][k]
@@ -361,4 +348,4 @@ class PublicationEvaluator:
                 "N_Slides": results["n_slides"], "N_Tiles": results["n_tiles"],
                 "Mean_CI": f"{m['mean']:.4f} [{m['ci_lower']:.4f}, {m['ci_upper']:.4f}]",
             })
-        _write_csv(out / f"{dataset_name}_comprehensive_results.csv", rows)
+        write_csv(out / f"{dataset_name}_comprehensive_results.csv", rows)

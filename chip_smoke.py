@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
-training, classifier training, classifier evaluation and conv-chain layout
-probe once on one CUDA GPU and check its kernels.
+training, classifier training, classifier evaluation, dataset builds, WSI
+tools and conv-chain layout probe once on one CUDA GPU and check its
+kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -85,6 +86,25 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      the TTA predict per chunk of 64 tiles, the flow by stage and its idle
      share, P and D at (512, 1024^2) f32 bit-equal to plain, beside their
      bounds
+  9d. builds  seeded RGB slides at the chunk sizes (6144^2, 6144x4096,
+     3000x5000: 75 tiles of 1024^2) with fat and bubbles annotations at
+     confidences 1-3, a near-white band and a blurred region, through
+     cli.main.main: ``build-dataset`` at every default (stain on; every
+     device call on the card, no kernel launched; the artifact contract)
+     and with ``--no-stain-normalize`` (the white gate); the 3000x5000
+     slide's build on the card against the same build on the CPU (names,
+     masks, stats, logs; the device work's verdicts and grayscale, within
+     1 level in at most 1e-3 of the pixels of well-conditioned tiles; each
+     JPEG the encoding of its device's tile); ``build-class-dataset
+     --stain-normalize true`` (byte-identical manifests against the CPU);
+     ``build-test-dataset`` and ``build-test-class-dataset`` over the
+     6144x4096 slide; ``reconstruct --use-tta --tta-mode basic`` over that
+     test set (A 1, B 1, D 2 per predict; under plain_kernels() nothing
+     launched, maps within 1 level); ``classification-overlay`` from a
+     ``classify`` CSV; ``run-pipeline`` at its defaults, 1 + 1 epochs, on
+     four slides (launches by stage); timings: the build by stage, tiles/s,
+     the device work per chunk of 16 by CUDA events, the tiling's idle
+     share, reconstruct per slide, run-pipeline by stage
   9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
@@ -102,6 +122,7 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import shutil
@@ -1846,6 +1867,468 @@ def phase_classifier_eval(dev, tmp: Path, cls_run: Path, seg_run: Path, smi: str
     return paths
 
 
+# ---- dataset builds and the WSI tools ------------------------------------------
+
+BUILD_SLIDES = CHUNKS  # the chunk sizes chunk-wsi writes: 75 tiles of 1024^2
+BUILD_QC_CHUNK = 16  # the builders' QC batch
+# The same build on the card and on the CPU: Reinhard's float32 rounding
+# differs (pow, the means' order) and a pixel on a level boundary moves by one
+# level (torch on the CPU against JAX: one level in 3.4e-5 of the pixels).
+BUILD_U8_LEVELS, BUILD_U8_SHARE = 1, 1e-3
+# Reinhard scales each tile's rounding by ref_std / src_std: a near-white or
+# blurred tile of little colour variance (amplified over 4x) moves more of
+# its pixels by the one level (tests/test_torch_build.py: 1.5e-2 at 28x).
+BUILD_ILL_AMPLIFICATION, BUILD_ILL_SHARE = 4.0, 3e-2
+RUN_PIPELINE_EVAL_BATCH = 16  # EvalConfig's batch_size
+
+
+def build_slide(shape: tuple[int, int], rng: np.random.Generator):
+    """A seeded BGR slide with tissue-like colour structure and fine texture,
+    a near-white band over the first tile row and a blurred 1024 x 2048
+    region; and its annotation records: ``fat`` polygons at confidences 1-3
+    (the confidence-1 ones alone in their tiles) and ``bubbles`` over fat."""
+    h, w = shape
+
+    def poly(cx, cy, r):
+        a = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+        rr = r * (1 + 0.2 * np.sin(3 * a))
+        return [[float(cx + x), float(cy + y)] for x, y in zip(rr * np.cos(a), rr * np.sin(a))]
+
+    img = np.empty((h, w, 3), np.float32)
+    for c, (lo, span) in enumerate(((120, 90), (60, 120), (130, 100))):
+        coarse = rng.random((h // 256 + 2, w // 256 + 2)).astype(np.float32)
+        img[..., c] = lo + span * cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+    img += rng.normal(0.0, 10.0, (h, w, 1)).astype(np.float32)
+    # scanner background: near-white with noise in each channel
+    img[:SIZE] = 244.0 + 10.0 * rng.random((SIZE, w, 3), dtype=np.float32)
+    y0, x0 = SIZE, min(2 * SIZE, w - 2 * SIZE)
+    region = np.ascontiguousarray(img[y0:y0 + SIZE, x0:x0 + 2 * SIZE])
+    img[y0:y0 + SIZE, x0:x0 + 2 * SIZE] = cv2.GaussianBlur(region, (0, 0), 8)
+    fat, bubbles = [], []
+    for _ in range(3 * h * w // (2 * SIZE * SIZE)):  # clear of the last tile column
+        r = float(rng.uniform(150, 450))
+        cx, cy = float(rng.uniform(0, w - SIZE - 1.2 * r - 8)), float(rng.uniform(SIZE, h))
+        fat.append({"confidenceScore": int(rng.integers(2, 4)),
+                    "annotation": {"elements": [{"type": "polyline", "points": poly(cx, cy, r)}]}})
+        if rng.random() < 0.3:
+            bubbles.append({"confidenceScore": 3, "annotation": {"elements": [
+                {"type": "polyline", "points": poly(cx, cy, r / 3)}]}})
+    for ty in range(2, h // SIZE, 3):  # confidence 1, alone in the last tile column
+        fat.append({"confidenceScore": 1, "annotation": {"elements": [
+            {"type": "polyline", "points": poly(w - SIZE // 2, ty * SIZE + SIZE // 2, 120)}]}})
+    return np.clip(img, 0, 255).astype(np.uint8), fat, bubbles
+
+
+def write_build_root(root: Path, slides: dict) -> Path:
+    """``Pseudocolored/<base>.png`` with ``Masks/{fat,bubbles}/<base>.json``;
+    ``slides``: base -> (image, fat, bubbles) or an existing root to link from."""
+    for sub in ("Pseudocolored", "Masks/fat", "Masks/bubbles"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for base, src in slides.items():
+        if isinstance(src, Path):
+            for rel in (f"Pseudocolored/{base}.png", f"Masks/fat/{base}.json",
+                        f"Masks/bubbles/{base}.json"):
+                (root / rel).symlink_to(src / rel)
+            continue
+        img, fat, bubbles = src
+        cv2.imwrite(str(root / "Pseudocolored" / f"{base}.png"), img)
+        (root / "Masks" / "fat" / f"{base}.json").write_text(json.dumps(fat))
+        (root / "Masks" / "bubbles" / f"{base}.json").write_text(json.dumps(bubbles))
+    return root
+
+
+@contextlib.contextmanager
+def recording(owner, name: str, calls: list):
+    """Wrap ``owner.name`` so each call appends (its arguments, result,
+    launches during it, host seconds) to ``calls``; the counts are not
+    reset, so an enclosing count sees every launch."""
+    fn = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        before = launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = launches()
+        calls.append((args, out, {k: after[k] - before[k] for k in after},
+                      time.perf_counter() - t0))
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def split_stems(root: Path) -> dict:
+    """{split: sorted tile stems} of a build's dataset, images and masks paired."""
+    out = {}
+    for split_dir in sorted((root / "dataset").iterdir()):
+        if not split_dir.is_dir():
+            continue
+        if (split_dir / "images").exists():
+            imgs = sorted(p.stem for p in (split_dir / "images").glob("*.jpg"))
+            masks = sorted(p.stem for p in (split_dir / "masks").glob("*.tif"))
+            if imgs != masks:
+                raise AssertionError(f"{split_dir}: images and masks not paired by stem")
+            out[split_dir.name] = imgs
+        else:
+            out[split_dir.name] = sorted(str(p.relative_to(split_dir))
+                                         for p in split_dir.rglob("*.jpg"))
+    return out
+
+
+def tile_amplification(slide_png: Path) -> dict[str, float]:
+    """{tile stem: the largest ref_std / src_std over its L*a*b* channels},
+    for the 1024^2 tiles of one slide: how much Reinhard scales the tile's
+    rounding (on the CPU, from the source crop)."""
+    from adipose_tpu_torch.data.tiling import tile_coords
+    from adipose_tpu_torch.ops.stain import DEFAULT_REFERENCE, compute_lab_stats
+
+    rgb = cv2.cvtColor(cv2.imread(str(slide_png)), cv2.COLOR_BGR2RGB)
+    ref = np.array(DEFAULT_REFERENCE.std)
+    return {f"{slide_png.stem}_r{r}_c{c}": float((ref / compute_lab_stats(
+        torch.from_numpy(rgb[y:y + SIZE, x:x + SIZE]).to(torch.float32) / 255)[1].numpy()).max())
+            for r, c, y, x in tile_coords(*rgb.shape[:2], SIZE, SIZE)}
+
+
+def compare_builds(gpu: Path, cpu: Path, what: str, tiles: dict) -> int:
+    """The same files, bit-equal masks, equal logs apart from the timestamp,
+    byte-identical manifests; each written JPEG byte-identical to the
+    quality-100 encoding of its device's tile array in ``tiles`` ({"card"
+    / "cpu": {stem: gray}}, compared by :func:`qc_on_both`); returns the
+    number of JPEGs."""
+    files = sorted(str(p.relative_to(cpu)) for p in cpu.rglob("*") if p.is_file())
+    got = sorted(str(p.relative_to(gpu)) for p in gpu.rglob("*") if p.is_file())
+    if got != files:
+        raise AssertionError(f"{what}: cuda and cpu builds wrote other files: "
+                             f"{sorted(set(got) ^ set(files))[:10]}")
+    n_jpeg = 0
+    for f in files:
+        a, b = gpu / f, cpu / f
+        if f.endswith(".tif"):
+            same = np.array_equal(cv2.imread(str(a), -1), cv2.imread(str(b), -1))
+        elif f.endswith(".jpg"):
+            n_jpeg += 1
+            same = all(path.read_bytes() == cv2.imencode(
+                ".jpg", tiles[key][Path(f).stem], [cv2.IMWRITE_JPEG_QUALITY, 100])[1].tobytes()
+                for path, key in ((a, "card"), (b, "cpu")))
+        elif f.endswith(".json"):
+            la, lb = (json.loads(p.read_text()) for p in (a, b))
+            la.pop("timestamp", None), lb.pop("timestamp", None)
+            same = la == lb
+        else:  # manifests, build_summary.txt
+            same = a.read_bytes() == b.read_bytes()
+        if not same:
+            raise AssertionError(f"{what}: {f} differs between the cuda and cpu builds")
+    return n_jpeg
+
+
+def qc_on_both(slide_png: Path, dev, amp: dict) -> dict:
+    """The builder's device work on one slide with stain on, on the card and
+    on the CPU: the same verdicts; grayscale within BUILD_U8_LEVELS
+    everywhere, in at most BUILD_U8_SHARE of the pixels of well-conditioned
+    tiles and BUILD_ILL_SHARE of the others; returns the shares, the worst
+    amplification and the largest relative Laplacian-variance gap."""
+    from adipose_tpu_torch.core.config import DataBuildConfig
+    from adipose_tpu_torch.data.tiling import SegmentationDatasetBuilder, tile_coords
+
+    rgb = cv2.cvtColor(cv2.imread(str(slide_png)), cv2.COLOR_BGR2RGB)
+    coords = tile_coords(rgb.shape[0], rgb.shape[1], SIZE, SIZE)
+    cfg = DataBuildConfig(apply_stain_norm=True)
+    (g_gpu, v_gpu), (g_cpu, v_cpu) = (
+        SegmentationDatasetBuilder(cfg, build_root="unused", device=d)._rgb_qc(rgb, coords)
+        for d in (dev, "cpu"))
+    for k in ("is_empty", "is_blurry", "is_good"):
+        if [bool(v[k]) for v in v_gpu] != [bool(v[k]) for v in v_cpu]:
+            raise AssertionError(f"QC verdict {k} differs between the card and the CPU")
+    d = np.abs(np.stack(g_gpu).astype(np.int16) - np.stack(g_cpu))
+    ill = np.array([amp[f"{slide_png.stem}_r{r}_c{c}"] > BUILD_ILL_AMPLIFICATION
+                    for r, c, _, _ in coords])
+    shares = {k: float((d[sel] > 0).mean()) if sel.any() else 0.0
+              for k, sel in (("well", ~ill), ("ill", ill), ("all", np.ones_like(ill)))}
+    if d.max() > BUILD_U8_LEVELS or shares["well"] > BUILD_U8_SHARE or \
+            shares["ill"] > BUILD_ILL_SHARE:
+        raise AssertionError(f"stain-normalized gray, card vs CPU: {d.max()} levels, shares "
+                             f"{shares} (bound {BUILD_U8_LEVELS} level in {BUILD_U8_SHARE}, "
+                             f"{BUILD_ILL_SHARE} on tiles amplified over "
+                             f"{BUILD_ILL_AMPLIFICATION}x)")
+    lap = max(abs(float(a["laplacian_var"]) - float(b["laplacian_var"])) /
+              max(float(b["laplacian_var"]), 1e-6) for a, b in zip(v_gpu, v_cpu))
+    stems = [f"{slide_png.stem}_r{r}_c{c}" for r, c, _, _ in coords]
+    return {"levels": int(d.max()), "shares": shares, "n_ill": int(ill.sum()),
+            "n": len(coords), "worst_amp": max(amp.values()), "lap": lap,
+            "tiles": {"card": dict(zip(stems, g_gpu)), "cpu": dict(zip(stems, g_cpu))}}
+
+
+def phase_builds(dev, tmp: Path, seg_run: Path, cls_run: Path, smi: str) -> dict:
+    """``adipose-torch build-dataset`` at its defaults, ``build-class-dataset
+    --stain-normalize true``, ``build-test-dataset``, ``build-test-class-
+    dataset``, ``reconstruct --use-tta``, ``classification-overlay`` from a
+    ``classify`` CSV and ``run-pipeline``, each through cli.main.main on
+    seeded slides at the chunk sizes; the card's builds against the same
+    builds on the CPU; launches by path; timings."""
+    import adipose_tpu_torch.data.tiling as tiling_module
+    import adipose_tpu_torch.wsi.reconstruct as reconstruct_module
+    from adipose_tpu_torch.eval.evaluator import PublicationEvaluator
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    slides = {f"slide{i}": build_slide(shape, rng) for i, shape in enumerate(BUILD_SLIDES)}
+    data = write_build_root(tmp / "slides", slides)
+    one = write_build_root(tmp / "one_slide", {"slide2": data})  # 3000 x 5000
+    test_src = write_build_root(tmp / "test_src", {"slide1": data})  # 6144 x 4096
+    four = write_build_root(tmp / "four", {**{b: data for b in slides},
+                                           "slide3": build_slide(BUILD_SLIDES[2], rng)})
+    del slides
+    n_tiles = sum(math.ceil(h / SIZE) * math.ceil(w / SIZE) for h, w in BUILD_SLIDES)
+    print(f"builds: {len(BUILD_SLIDES)} seeded RGB slides {BUILD_SLIDES} ({n_tiles} tiles of "
+          f"{SIZE}^2) and a fourth, written in {time.perf_counter() - t0:.1f} s")
+    paths: dict[str, dict[str, int]] = {}
+
+    # build-dataset at every default, on the card; its device calls recorded
+    qc_calls: list = []
+    builds: list = []
+    with recording(tiling_module, "_device_rgb_qc", qc_calls), \
+            recording(tiling_module.SegmentationDatasetBuilder, "build", builds):
+        reset_launches()
+        cli.main(["build-dataset", "--data-root", str(data), "--output-root",
+                  str(tmp / "build_gpu"), "--device", str(dev)])
+    paths["build"] = launches()
+    (args, root, _, build_wall), = builds
+    builder = args[0]
+    stats = json.loads((root / "build_log.json").read_text())["stats"]
+    stems = split_stems(root)
+    on_card = all(a[0].device == torch.device(dev) for a, *_ in qc_calls)
+    want_chunks = sum(math.ceil(math.ceil(h / SIZE) * math.ceil(w / SIZE) / BUILD_QC_CHUNK)
+                      for h, w in BUILD_SLIDES)
+    qa = {c: len(list((root / "tiles" / c).glob("*.jpg"))) for c in ("empty", "blurry")}
+    if not on_card or len(qc_calls) != want_chunks or any(paths["build"].values()) or \
+            stats["tiles_total"] != n_tiles or not (root / "build_summary.txt").exists() or \
+            not qa["blurry"] or not stems.get("train") or not stems.get("val") or \
+            not builder.cfg.apply_stain_norm:
+        raise AssertionError(f"build-dataset: on card {on_card}, {len(qc_calls)} device calls "
+                             f"(want {want_chunks}), launches {paths['build']}, stats {stats}, "
+                             f"QA {qa}, splits { {k: len(v) for k, v in stems.items()} }")
+    timings = builder.timings
+    print(f"build: adipose-torch build-dataset at its defaults (stain normalization on, "
+          f"{SIZE}^2 tiles at stride {SIZE}, QC batch {BUILD_QC_CHUNK}, val 0.2, negatives 0.4) "
+          f"over {len(BUILD_SLIDES)} slides: {stats['tiles_total']} tiles, kept "
+          f"{stats['tiles_kept_pos']} positive + {stats['tiles_kept_neg']} negative, skipped "
+          f"{stats['tiles_skipped_empty']} empty, {stats['tiles_skipped_blurry']} blurry, "
+          f"{stats['tiles_skipped_ambiguous']} ambiguous, {stats['tiles_skipped_low_conf']} "
+          f"low-confidence; splits { {k: len(v) for k, v in stems.items()} }; QA tiles {qa}; "
+          f"{len(qc_calls)} device calls, all on the card; kernel launches {paths['build']}")
+    print(f"timing build: {build_wall:.2f} s wall, by stage (host clock) "
+          f"{json.dumps({k: round(v, 3) for k, v in timings.items()})}; "
+          f"{stats['tiles_total'] / build_wall:.2f} tiles/s [{smi}]")
+
+    # Reinhard runs before QC (the reference's order), so it lifts the
+    # near-white band out of the white gate; without it the band is "empty"
+    cli.main(["build-dataset", "--data-root", str(data), "--output-root",
+              str(tmp / "build_nostain"), "--no-stain-normalize", "--device", str(dev)])
+    (nostain_root,) = (tmp / "build_nostain").glob("_build_*")
+    qa_nostain = {c: len(list((nostain_root / "tiles" / c).glob("*.jpg")))
+                  for c in ("empty", "blurry")}
+    if not qa_nostain["empty"] or not qa_nostain["blurry"]:
+        raise AssertionError(f"build-dataset --no-stain-normalize: QA tiles {qa_nostain}")
+    print(f"build: with --no-stain-normalize the QA tiles are {qa_nostain} (stain on: {qa}, "
+          f"the normalized white band fails the blur gate instead)")
+
+    # the same build on the CPU, over the 3000 x 5000 slide
+    for label, d in (("card", dev), ("cpu", "cpu")):
+        cli.main(["build-dataset", "--data-root", str(one), "--output-root",
+                  str(tmp / f"one_{label}"), "--device", str(d)])
+    (gpu_root,), (cpu_root,) = (list((tmp / f"one_{k}").glob("_build_*")) for k in ("card", "cpu"))
+    amp = tile_amplification(one / "Pseudocolored" / "slide2.png")
+    gray = qc_on_both(one / "Pseudocolored" / "slide2.png", dev, amp)
+    n_jpeg = compare_builds(gpu_root, cpu_root, "build-dataset", gray["tiles"])
+    sh = gray["shares"]
+    print(f"build: the 3000x5000 slide's build on the card vs on the CPU: the same tile names "
+          f"per split { {k: len(v) for k, v in split_stems(gpu_root).items()} }, bit-equal "
+          f"masks, equal stats and logs; device work: equal verdicts, gray within "
+          f"{gray['levels']} level, in {sh['all']:.3g} of all pixels: {sh['well']:.3g} on the "
+          f"{gray['n'] - gray['n_ill']} well-conditioned tiles (bound {BUILD_U8_SHARE}), "
+          f"{sh['ill']:.3g} on the {gray['n_ill']} amplified over {BUILD_ILL_AMPLIFICATION}x "
+          f"(worst {gray['worst_amp']:.1f}x; bound {BUILD_ILL_SHARE}); Laplacian variance "
+          f"within {gray['lap']:.2g} relative; each of the {n_jpeg} JPEGs of each build "
+          f"byte-identical to the encoding of its device's tile")
+
+    # the device work per chunk of 16 by CUDA events, and the idle share over
+    # one slide's tiling
+    slide_png = data / "Pseudocolored" / "slide0.png"
+    rgb = cv2.cvtColor(cv2.imread(str(slide_png)), cv2.COLOR_BGR2RGB)
+    chunk = torch.from_numpy(np.stack([
+        rgb[y:y + SIZE, x:x + SIZE] for _, _, y, x in tiling_module.tile_coords(
+            *rgb.shape[:2], SIZE, SIZE) if y >= SIZE][:BUILD_QC_CHUNK])).to(dev)
+    ref_mean, ref_std = builder._stain_reference().as_arrays(dev)
+    chunk_ms = cuda_ms(lambda c: tiling_module._device_rgb_qc(
+        c, ref_mean, ref_std, 235, 0.7, 7.5, True), [chunk], 5)
+    nostain_ms = cuda_ms(lambda c: tiling_module._device_rgb_qc(
+        c, ref_mean, ref_std, 235, 0.7, 7.5, False), [chunk], 5)
+    slide = tiling_module.discover_slides(data)[0]
+    mask = builder.build_slide_mask(slide)
+    builder.tile_slide(slide, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tiled = builder.tile_slide(slide, mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    print(f"timing build device work: stain + QC + gray of a chunk of {BUILD_QC_CHUNK} RGB "
+          f"{SIZE}^2 tiles {chunk_ms:.3f} ms ({nostain_ms:.3f} ms without stain) by CUDA "
+          f"events; tiling one {BUILD_SLIDES[0][0]}x{BUILD_SLIDES[0][1]} slide ({len(tiled)} "
+          f"tiles kept): {wall:.3f} s wall, device busy {busy:.3f} s "
+          f"({100 * (1 - busy / wall):.1f}% idle) [{smi}]")
+    del chunk, rgb, mask, tiled
+
+    # build-class-dataset --stain-normalize true: all slides on the card, and
+    # the 3000 x 5000 slide on the card and on the CPU
+    cli.main(["build-class-dataset", "--data-root", str(data), "--out-parent",
+              str(tmp / "class_gpu"), "--stain-normalize", "true", "--device", str(dev)])
+    (class_root,) = (tmp / "class_gpu").glob("_build_class_*")
+    report = json.loads((class_root / "balance_report.json").read_text())
+    missing = [f for f in ("config.json", "balance_report.json", "dataset/train_manifest.csv",
+                           "dataset/val_manifest.csv", "dataset/test_manifest.csv")
+               if not (class_root / f).exists()]
+    if missing or not report["adipose"] or not report["not_adipose"]:
+        raise AssertionError(f"build-class-dataset: missing {missing}, report {report}")
+    for label, d in (("card", dev), ("cpu", "cpu")):
+        cli.main(["build-class-dataset", "--data-root", str(one), "--out-parent",
+                  str(tmp / f"class_one_{label}"), "--stain-normalize", "true",
+                  "--device", str(d)])
+    (cg,), (cc,) = (list((tmp / f"class_one_{k}").glob("_build_class_*"))
+                    for k in ("card", "cpu"))
+    n_cjpeg = compare_builds(cg, cc, "build-class-dataset", gray["tiles"])
+    print(f"build_class: adipose-torch build-class-dataset --stain-normalize true over "
+          f"{len(BUILD_SLIDES)} slides: {report['adipose']} adipose + {report['not_adipose']} "
+          f"not adipose ({report['balance_grade']}), splits {report['split_counts']}; the "
+          f"3000x5000 slide on the card vs the CPU: byte-identical manifests, the same files, "
+          f"each of the {n_cjpeg} JPEGs the encoding of its device's tile")
+
+    # the isolated test sets over the 6144 x 4096 slide
+    cli.main(["build-test-dataset", "--images-dir", str(test_src / "Pseudocolored"),
+              "--masks-dir", str(test_src / "Masks"), "--output-dir", str(tmp / "test_gpu"),
+              "--device", str(dev)])
+    (test_root,) = (tmp / "test_gpu").glob("_build_*")
+    tstats = json.loads((test_root / "build_log.json").read_text())["stats"]
+    test_tiles = split_stems(test_root)["test"]
+    slide_tiles = math.ceil(BUILD_SLIDES[1][0] / SIZE) * math.ceil(BUILD_SLIDES[1][1] / SIZE)
+    # every tile stays but those whose annotations are all below confidence 2
+    if len(test_tiles) != slide_tiles - tstats["tiles_skipped_low_conf"] or \
+            tstats["tiles_skipped_empty"] or tstats["tiles_skipped_blurry"] or \
+            tstats["tiles_skipped_ambiguous"]:
+        raise AssertionError(f"build-test-dataset: {len(test_tiles)} test tiles, stats {tstats}")
+    cli.main(["build-test-class-dataset", "--images-dir", str(test_src / "Pseudocolored"),
+              "--masks-dir", str(test_src / "Masks"), "--output-dir", str(tmp / "test_class"),
+              "--stain-normalize", "true", "--device", str(dev)])
+    (tclass_root,) = (tmp / "test_class").glob("_build_class_*")
+    tclass = split_stems(tclass_root)["test"]
+    print(f"build_test: build-test-dataset over the 6144x4096 slide: {len(test_tiles)} of "
+          f"{slide_tiles} tiles kept ({tstats['tiles_skipped_low_conf']} with only "
+          f"low-confidence annotations dropped); build-test-class-dataset: {len(tclass)} tiles")
+
+    # reconstruct --use-tta --tta-mode basic over the test set, then the same
+    # under plain_kernels()
+    recon_calls: list = []
+    slide_calls: list = []
+    rec_argv = ["reconstruct", "--weights", str(seg_run), "--images-dir",
+                str(test_root / "dataset" / "test" / "images"), "--masks-dir",
+                str(test_root / "dataset" / "test" / "masks"), "--use-tta", "--tta-mode",
+                "basic", "--device", str(dev)]
+    with recording(reconstruct_module, "reconstruct_all_slides", recon_calls):
+        with recording(reconstruct_module.SlideReconstructor, "reconstruct_slide",
+                       slide_calls):
+            cli.main(rec_argv + ["--output-dir", str(tmp / "recon")])
+        with plain_kernels():
+            cli.main(rec_argv + ["--output-dir", str(tmp / "recon_plain")])
+    (_, log, counts, rec_wall), (_, _, plain_counts, plain_wall) = recon_calls
+    paths["reconstruct"] = counts
+    predicts = math.ceil(len(test_tiles) / (16 // len(MODE_IDS["basic"])))
+    if counts != tta_counts(predicts) or any(plain_counts.values()) or \
+            list(log["slides"]) != ["slide1"]:
+        raise AssertionError(f"reconstruct: launches {counts} (want {tta_counts(predicts)}), "
+                             f"plain {plain_counts}, log {log}")
+    pred, pred_plain = (cv2.imread(str(d / "slide1" / "prediction.png"), -1).astype(np.int16)
+                        for d in (tmp / "recon", tmp / "recon_plain"))
+    rec_gap = int(np.abs(pred - pred_plain).max())
+    metrics = json.loads((tmp / "recon" / "slide1" / "metrics.json").read_text())
+    if pred.shape != BUILD_SLIDES[1] or rec_gap > 1 or not math.isfinite(metrics["dice_score"]):
+        raise AssertionError(f"reconstruct: map {pred.shape}, kernels vs plain {rec_gap} "
+                             f"levels, metrics {metrics}")
+    print(f"reconstruct: adipose-torch reconstruct --use-tta --tta-mode basic (batch 16 = 4 "
+          f"tiles x 4 views) with the slice's init_nb {INIT_NB} run over the test set "
+          f"({len(test_tiles)} tiles, coverage {log['slides']['slide1']['coverage']:.3f}): a "
+          f"{pred.shape[0]}x{pred.shape[1]} map, dice {metrics['dice_score']:.4f}; launches "
+          f"{counts} ({predicts} predicts: A 1, B 1, D 2 each); under plain_kernels() nothing "
+          f"launched, prediction.png within {rec_gap} level of the kernels' (bound 1)")
+    print(f"timing reconstruct: per slide {[round(c[3], 3) for c in slide_calls]} s (decode, "
+          f"predict, three blends and their copies; host clock), the call {rec_wall:.2f} s; "
+          f"with the plain versions {plain_wall:.2f} s [{smi}]")
+
+    # classification-overlay from a classify CSV over the class test set's tiles
+    reset_launches()
+    cli.main(["classify", "--weights", str(cls_run), "--input-dir",
+              str(tclass_root / "dataset" / "test"), "--output-dir", str(tmp / "cls_test"),
+              "--device", str(dev)])
+    csv_path = tmp / "cls_test" / "predictions_grayscale.csv"
+    cli.main(["classification-overlay", "--wsi", str(test_src / "Pseudocolored" / "slide1.png"),
+              "--predictions-csv", str(csv_path), "--output-dir", str(tmp / "overlay")])
+    ov = cv2.imread(str(tmp / "overlay" / "slide1_overlay.png"))
+    want_shape = (BUILD_SLIDES[1][0] // 8, BUILD_SLIDES[1][1] // 8, 3)
+    if ov is None or ov.shape != want_shape or len(read_csv_rows(csv_path)) != len(tclass):
+        raise AssertionError(f"classification-overlay: {None if ov is None else ov.shape}")
+    print(f"overlay: classify at its defaults over the {len(tclass)} class test tiles, then "
+          f"classification-overlay (combine 3, downsample 8): a {ov.shape[1]}x{ov.shape[0]} "
+          f"overlay")
+
+    # run-pipeline at its defaults, epochs cut to 1 + 1, on four slides
+    trains, evals = [], []
+    with recording(UNetTrainer, "train", trains), \
+            recording(PublicationEvaluator, "evaluate", evals), \
+            recording(tiling_module.SegmentationDatasetBuilder, "build", builds), \
+            contextlib.chdir(tmp):
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(["run-pipeline", "--data-root", str(four), "--epochs-phase1", "1",
+                      "--epochs-phase2", "1", "--device", str(dev)])
+        rp_wall = time.perf_counter() - t0
+    text = out.getvalue()
+    summary = json.loads(text[text.rindex('{\n  "checkpoint_dir"'):])
+    rp_root = builds[-1][1]
+    n = {s: len(v) for s, v in split_stems(rp_root).items()}
+    steps = 2 * math.ceil(n["train"] / TRAIN_BATCH)
+    stage = {"build": builds[-1][2], "train": trains[0][2], "val_eval": evals[0][2],
+             "test_eval": evals[1][2]}
+    want = {"build": {k: 0 for k in KERNELS},
+            "train": {k: 0 for k in KERNELS} | {"d4_transform_batch": 2 * steps},
+            "val_eval": {k: 0 for k in KERNELS} | {
+                "fused_zscore_normalize": math.ceil(n["val"] / RUN_PIPELINE_EVAL_BATCH),
+                "diff_sigmoid_head": math.ceil(n["val"] / RUN_PIPELINE_EVAL_BATCH)},
+            "test_eval": {k: 0 for k in KERNELS} | {
+                "fused_zscore_normalize": math.ceil(n["test"] / RUN_PIPELINE_EVAL_BATCH),
+                "diff_sigmoid_head": math.ceil(n["test"] / RUN_PIPELINE_EVAL_BATCH)}}
+    if stage != want or set(summary["timings"]) != {"build_s", "train_s", "val_eval_s",
+                                                     "test_eval_s"} or \
+            not all(math.isfinite(summary[k]) for k in ("val_dice", "test_dice")):
+        raise AssertionError(f"run-pipeline: launches by stage {stage}, want {want}; "
+                             f"summary {summary}")
+    paths["run_pipeline"] = {k: sum(s[k] for s in stage.values()) for k in KERNELS}
+    print(f"run_pipeline: adipose-torch run-pipeline at its defaults (init_nb {INIT_NB}, "
+          f"{SIZE}^2, batch {TRAIN_BATCH}, z-score, val/test 0.15, stain off), 1 + 1 epochs, "
+          f"on 4 slides: splits {n}, val dice {summary['val_dice']:.4f}, test dice "
+          f"{summary['test_dice']:.4f}, threshold {summary['optimal_threshold']:.2f}; launches "
+          f"by stage {json.dumps({k: {n_: c for n_, c in v.items() if c} for k, v in stage.items()})}")
+    print(f"timing run_pipeline: {json.dumps({k: round(v, 2) for k, v in summary['timings'].items()})} "
+          f"s by stage, {rp_wall:.2f} s in all [{smi}]")
+    return paths
+
+
 def phase_cls_timing(dev, g, cls: dict, smi: str) -> dict:
     """The classifier's train step in each phase, with and without
     ``augment_low_res``, and the prep alone, by CUDA events over distinct
@@ -2092,6 +2575,8 @@ def main() -> int:
         paths["train_classifier"] = cls["launches"]
         torch.cuda.empty_cache()
         paths |= phase_classifier_eval(dev, Path(tmp), cls["run"], run, smi)
+        torch.cuda.empty_cache()
+        paths |= phase_builds(dev, Path(tmp), run, cls["run"], smi)
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

@@ -53,8 +53,12 @@ LOGISTIC_PARAM_RTOL = 1e-2
 LOGISTIC_TIGHT_ATOL = 1e-8
 ISOTONIC_ATOL = 1e-12
 # bf16 InceptionV3 probabilities, JAX against the port: tests/test_torch_inception.py
-# measured 6.2e-4 on its inputs; these unstretched tiles, 2.3e-3.
+# measured 6.2e-4 on its inputs; these unstretched tiles, 2.3e-3 (in float32,
+# 3.9e-7: test_classifier_predicts_match_jax_in_float32).
 BF16_ATOL = 5e-3
+# The same InceptionV3 in float32: XLA's and torch's convolutions sum in
+# other orders.
+F32_ATOL = 1e-5
 N_TILE = 16
 
 
@@ -315,6 +319,35 @@ def test_logistic_matches_sklearn(method, n):
         ce.Calibrator("beta", probs, labels)
 
 
+def test_temperature_calibration_on_a_zero_probability_raises_as_jax(splits, tmp_path):
+    """A probability of exactly 0 has the logit -inf: the port's fit raises
+    the ValueError that sklearn's input check raises in the JAX package,
+    on its own and through one-snapshot ``eval-classifier`` flows (no
+    ensemble clip there), instead of returning NaN probabilities."""
+    probs, labels = _cal_inputs(200, 5, np.float32, False)
+    probs[7] = 0.0
+    with pytest.raises(ValueError):
+        jce.fit_calibrator(probs, labels, "temperature")
+    with pytest.raises(ValueError):
+        ce.Calibrator("temperature", probs, labels)
+    cal = ce.Calibrator("platt", probs, labels)  # the feature is p itself: finite
+    assert np.isfinite(cal(probs)).all()
+    test_dir, val_dir = splits
+    floor = lambda p: p * (p > 0.45)  # noqa: E731  (exact zeros, both libraries)
+    for side, ds_cls, stub, run in (("jax", JaxClassificationDataset, _jax_stub,
+                                     jce.run_classifier_evaluation),
+                                    ("torch", ClassificationDataset, _torch_stub,
+                                     ce.run_classifier_evaluation)):
+        extra = {"device": "cpu"} if side == "torch" else {}
+        for external in (False, True):
+            cal_ds = ds_cls(val_dir, 8) if external else None
+            with pytest.raises(ValueError):
+                run(lambda v, x, stub=stub: floor(stub(v, x)), [SNAPSHOTS[0]],
+                    ds_cls(test_dir, 8), tmp_path / side, use_tta=False,
+                    calibration="temperature", calibration_dataset=cal_ds, plots=False,
+                    save_examples=False, **extra)
+
+
 # ---- curves, scores, sweeps -------------------------------------------------------
 
 
@@ -481,6 +514,39 @@ def test_classify_cli_matches_jax_cli(classifier_run, tmp_path):
                 "--output-dir", str(tmp_path / "tta"), "--device", "cpu", "--gpu", "0"])
     rows_t = _read_csv(tmp_path / "tta" / "predictions_grayscale_tta.csv")
     assert len(rows_t) == 6 and all(0 <= float(r["adipose_probability"]) <= 1 for r in rows_t)
+
+
+def test_classifier_predicts_match_jax_in_float32(classifier_run):
+    """The gap of the CLI tests (BF16_ATOL, measured 2.3e-3) is bf16 noise:
+    the predicts behind ``classify`` (no stretch, no TTA) and
+    ``eval-classifier`` (basic TTA) agree with the JAX package's within
+    F32_ATOL in float32 on the same decoded tiles (measured 3.9e-7 and
+    1.2e-7)."""
+    import jax
+
+    from adipose_tpu.eval.tta import make_classifier_tta_predict as jax_tta
+    from adipose_tpu.models.inception import InceptionV3Classifier as JaxInception
+    from adipose_tpu.train.trainer_classifier import _make_val_step as jax_val_step
+    from adipose_tpu_torch.eval.evaluator import read_image_gray
+    from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
+    from adipose_tpu_torch.models.convert import flax_inception_to_torch
+    from adipose_tpu_torch.train.trainer_classifier import _make_val_step
+
+    run, data = classifier_run
+    tree = jax_ckpt.load_params(run / "weights_best")
+    x = np.stack([read_image_gray(str(p)) for p in sorted((data / "test").rglob("*.jpg"))])
+    jstep = jax_val_step(JaxInception(dtype=jnp.float32), False, 1.0, 99.0)
+
+    def jax_predict(v, images):
+        return jstep(v["params"], v["batch_stats"], images)
+
+    step = _make_val_step(inc.InceptionV3Classifier(compute_dtype=torch.float32, device="meta"),
+                          False, 1.0, 99.0)
+    state = flax_inception_to_torch(jax.tree.map(np.asarray, tree))
+    for jp, tp in ((jax_predict, step), (jax_tta(jax_predict, "basic"),
+                                        make_classifier_tta_predict(step, "basic"))):
+        np.testing.assert_allclose(tp(state, torch.from_numpy(x)).numpy(),
+                                   np.asarray(jp(tree, jnp.asarray(x))), rtol=0, atol=F32_ATOL)
 
 
 def test_classify_refuses_what_is_not_ported(classifier_run):

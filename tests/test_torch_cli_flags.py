@@ -14,7 +14,10 @@ from adipose_tpu_torch.cli.main import build_parser
 ROOT = Path(__file__).resolve().parents[1]
 PORTED = ("segment", "classify", "evaluate", "evaluate-checkpoints", "eval-classifier",
           "tile-classification-eval", "visualize-metrics", "pipeline", "train-unet",
-          "train-classifier")
+          "train-classifier", "build-dataset", "build-test-dataset", "build-class-dataset",
+          "build-test-class-dataset", "run-pipeline", "reconstruct", "classification-overlay")
+# the host-only subcommands: no --device
+HOST_ONLY = ("visualize-metrics", "classification-overlay")
 # Not on the card's machine (numpy, scipy, einops and cv2 are); the JAX package
 # and JAX itself are held out by test_torch_segment.py::test_cli_imports_without_jax.
 FORBIDDEN = {"sklearn", "pandas", "matplotlib", "jax", "jaxlib", "adipose_tpu"}
@@ -39,7 +42,7 @@ def test_the_port_has_the_ported_subcommands():
 def test_every_jax_flag_parses_with_the_same_default(name):
     """Each option string of ``adipose <name>`` is one of ``adipose-torch
     <name>``'s, with the same dest and default, and the port adds
-    ``--device`` defaulting to cuda where a model runs."""
+    ``--device`` defaulting to cuda where device work runs."""
     jax_sub, port_sub = _subparsers(jax_build_parser())[name], _subparsers(build_parser())[name]
     want, got = _options(jax_sub), _options(port_sub)
     missing = sorted(set(want) - set(got))
@@ -51,7 +54,7 @@ def test_every_jax_flag_parses_with_the_same_default(name):
     assert extra in ([], ["--device"]), f"{name}: {extra}"
     if extra:
         assert got["--device"].default == "cuda"
-    assert name == "visualize-metrics" or extra == ["--device"]
+    assert name in HOST_ONLY or extra == ["--device"]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -5,9 +5,11 @@
 ``visualize-metrics``, ``pipeline``, ``train-unet``, ``train-classifier``,
 the four dataset builds (``build-dataset``, ``build-test-dataset``,
 ``build-class-dataset``, ``build-test-class-dataset``), ``run-pipeline``,
-``reconstruct`` and ``classification-overlay`` are those subcommands of
-``adipose`` (``adipose_tpu/cli/main.py``) on a torch device, with the same
-flags plus ``--device`` where device work runs. They read
+``reconstruct``, ``classification-overlay`` and the WSI preparation tools
+(``chunk-wsi``, ``preprocess-ecm``, ``scale-ecm``, ``compare-modalities``,
+``tif2jpg``) are those subcommands of ``adipose`` (``adipose_tpu/cli/main.py``)
+on a torch device, with the same flags plus ``--device`` where device work
+runs. They read
 and write ``params.npz`` weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
@@ -86,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_classifier_inference(sub)
     _add_builds(sub)
     _add_wsi_tools(sub)
+    _add_wsi_prep(sub)
     return parser
 
 
@@ -380,6 +383,112 @@ def _add_wsi_tools(sub) -> None:
     rp.add_argument("--val-ratio", type=float, default=0.15)
     rp.add_argument("--test-ratio", type=float, default=0.15)
     _add_device(rp, cmd_run_pipeline)
+
+
+def _add_wsi_prep(sub) -> None:
+    """``chunk-wsi``, ``preprocess-ecm``, ``scale-ecm``, ``compare-modalities``
+    and ``tif2jpg``: every flag name and default of the ``adipose``
+    subcommands plus ``--device`` where device work runs (not ``scale-ecm``
+    and ``tif2jpg``, which are host cv2)."""
+    ch = sub.add_parser("chunk-wsi", help="cut huge WSIs into chunks")
+    ch.add_argument("--input", default=None, help="a single WSI file")
+    ch.add_argument("--input-dir", default=None,
+                    help="directory of WSIs (reference driver, "
+                         "large_wsi_to_small_wsi_MS.py:642)")
+    ch.add_argument("--output-dir", required=True)
+    ch.add_argument("--mode", choices=["adaptive", "grid"], default="adaptive")
+    ch.add_argument("--primary-tile", type=int, default=6144)
+    ch.add_argument("--grid-tile", type=int, default=2048)
+    ch.add_argument("--grid-overlap", type=int, default=204)
+    ch.add_argument("--max-file-size-mb", type=float, default=50.0)
+    ch.add_argument("--max-dimension-px", type=int, default=13112)
+    ch.add_argument("--min-dimension-px", type=int, default=13112)
+    ch.add_argument("--extensions", default=".tif,.tiff,.png,.jpg,.jpeg")
+    ch.add_argument("--output-format", choices=["auto", "jpg", "jpeg", "png", "tif", "tiff"],
+                    default="auto")
+    ch.add_argument("--bit-depth", choices=["auto", "8", "16"], default="auto")
+    ch.add_argument("--enhancement", "--enhancement-method", dest="enhancement",
+                    choices=["none", "zscore", "percentile", "clahe"], default="none")
+    ch.add_argument("--save-enhanced", action="store_true")
+    ch.add_argument("--invert", action="store_true")
+    ch.add_argument("--skip-existing", action="store_true")
+    ch.add_argument("--dry-run", action="store_true")
+    _add_device(ch, cmd_chunk_wsi)
+
+    pe = sub.add_parser("preprocess-ecm", help="ECM channel cleanup (deband etc.)")
+    pe.add_argument("--input-dir", required=True)
+    pe.add_argument("--output-dir", required=True)
+    # banding removal (preprocess_small_MS_SIMs.py:853-878)
+    pe.add_argument("--deband", "--banding-method", dest="deband",
+                    choices=["fft", "morphological", "column_norm", "column", "none"],
+                    default="none")
+    pe.add_argument("--fft-freq-low", type=float, default=0.01)
+    pe.add_argument("--fft-freq-high", type=float, default=0.05)
+    pe.add_argument("--fft-width", type=int, default=3)
+    pe.add_argument("--fft-sigma-scale", type=float, default=0.5)
+    pe.add_argument("--fft-blend", type=float, default=1.0)
+    pe.add_argument("--morph-width", type=int, default=1)
+    pe.add_argument("--morph-height", type=int, default=512)
+    pe.add_argument("--column-preserve-global", action="store_true", default=True)
+    # normalization (:881-889)
+    pe.add_argument("--normalization-method", choices=["percentile", "zscore", "none"],
+                    default="none")
+    pe.add_argument("--percentile-low", type=float, default=1.0)
+    pe.add_argument("--percentile-high", type=float, default=99.0)
+    # illumination correction (:892-914)
+    pe.add_argument("--illumination", "--illumination-method", dest="illumination",
+                    choices=["rolling_ball", "rolling-ball", "gaussian", "polynomial", "tophat",
+                             "clahe", "none"],
+                    default="none")
+    pe.add_argument("--rolling-ball-radius", type=int, default=100)
+    pe.add_argument("--poly-sigma", type=float, default=150.0)
+    pe.add_argument("--tophat-kernel", type=int, default=301)
+    pe.add_argument("--clahe-illum-tile", type=int, default=16)
+    pe.add_argument("--clahe-illum-clip", type=float, default=2.0)
+    # contrast + sharpening (:917-932)
+    pe.add_argument("--clahe", "--enhance-contrast", dest="clahe", action="store_true")
+    pe.add_argument("--clahe-tile-size", type=int, default=16)
+    pe.add_argument("--clahe-clip-limit", type=float, default=3.0)
+    pe.add_argument("--sharpen", action="store_true")
+    pe.add_argument("--sharpen-sigma", type=float, default=1.0)
+    pe.add_argument("--sharpen-amount", type=float, default=0.5)
+    # visualization / test mode (:935-945)
+    pe.add_argument("--visualize", action="store_true")
+    pe.add_argument("--max-visualizations", type=int, default=10)
+    pe.add_argument("--test-mode", action="store_true")
+    pe.add_argument("--test-samples", type=int, default=5)
+    _add_device(pe, cmd_preprocess_ecm)
+
+    se = sub.add_parser("scale-ecm", help="resample ECM images to reference dims")
+    se.add_argument("--input-dir", "--target-dir", dest="input_dir", required=True,
+                    help="ECM images to resample (reference name: --target-dir, "
+                         "ECM_scaling.py:201)")
+    se.add_argument("--reference-dir", required=True)
+    se.add_argument("--output-dir", required=True)
+    se.add_argument("--interpolation", choices=["nearest", "bilinear", "bicubic", "lanczos"],
+                    default="bilinear")
+    se.add_argument("--dry-run", action="store_true")
+    se.set_defaults(func=cmd_scale_ecm)
+
+    cm = sub.add_parser("compare-modalities", help="Pseudocolored vs ECM metrics")
+    cm.add_argument("--pseudo-dir", required=True)
+    cm.add_argument("--ecm-dir", required=True)
+    cm.add_argument("--output-dir", required=True)
+    cm.add_argument("--n-samples", type=int, default=50)
+    cm.add_argument("--n-perfect", type=int, default=None,
+                    help="sample N same-dimension pairs separately")
+    cm.add_argument("--n-mismatch", type=int, default=None,
+                    help="sample N dimension-mismatched pairs separately")
+    cm.add_argument("--seed", type=int, default=None)
+    _add_device(cm, cmd_compare_modalities)
+
+    tj = sub.add_parser("tif2jpg", help="16-bit TIFF -> 8-bit JPEG")
+    tj.add_argument("--input-dir", required=True)
+    tj.add_argument("--output-dir", required=True)
+    tj.add_argument("--quality", type=int, default=95)
+    tj.add_argument("--invert", action="store_true")
+    tj.add_argument("--dry-run", action="store_true")
+    tj.set_defaults(func=cmd_tif2jpg)
 
 
 def _add_eval_opts(p) -> None:
@@ -1509,6 +1618,131 @@ def cmd_run_pipeline(args) -> dict:
     }
     print(json.dumps(summary, indent=2))
     return summary
+
+
+def cmd_chunk_wsi(args):
+    from adipose_tpu_torch.core.config import WSIChunkConfig
+    from adipose_tpu_torch.wsi.chunker import (chunk_directory, chunk_wsi_adaptive,
+                                               chunk_wsi_grid)
+
+    cfg = WSIChunkConfig(
+        primary_tile=args.primary_tile, grid_tile=args.grid_tile,
+        grid_overlap=args.grid_overlap, enhancement=args.enhancement, invert=args.invert,
+        max_chunk_mb=args.max_file_size_mb, max_dimension_px=args.max_dimension_px,
+        min_dimension_px=args.min_dimension_px, output_format=args.output_format,
+        bit_depth=args.bit_depth, save_enhanced=args.save_enhanced,
+    )
+    if args.input_dir:
+        exts = tuple(e if e.startswith(".") else f".{e}"
+                     for e in (s.strip().lower() for s in args.extensions.split(",")) if e)
+        report = chunk_directory(args.input_dir, args.output_dir, cfg, mode=args.mode,
+                                 extensions=exts, skip_existing=args.skip_existing,
+                                 dry_run=args.dry_run, device=args.device)
+        print(json.dumps({"processed": len(report["processed"]),
+                          "skipped": len(report["skipped"]),
+                          "outputs": len(report["outputs"]),
+                          "dry_run": args.dry_run}, indent=2))
+        return report
+    if not args.input:
+        raise SystemExit("chunk-wsi requires --input or --input-dir")
+    if args.mode == "adaptive":
+        written = chunk_wsi_adaptive(args.input, args.output_dir, cfg, dry_run=args.dry_run,
+                                     device=args.device)
+    else:
+        written = chunk_wsi_grid(args.input, args.output_dir, cfg, dry_run=args.dry_run)
+    print(f"{'planned' if args.dry_run else 'wrote'} {len(written)} chunks "
+          f"to {args.output_dir}")
+    return written
+
+
+def ecm_config(args):
+    """The ``ECMPreprocessConfig`` of ``preprocess-ecm``'s flags."""
+    from adipose_tpu_torch.core.config import ECMPreprocessConfig
+
+    return ECMPreprocessConfig(
+        deband_method=args.deband,
+        fft_freq_low=args.fft_freq_low, fft_freq_high=args.fft_freq_high,
+        fft_width=args.fft_width, fft_sigma_scale=args.fft_sigma_scale,
+        fft_blend=args.fft_blend,
+        morph_width=args.morph_width, morph_height=args.morph_height,
+        column_preserve_global=args.column_preserve_global,
+        normalization_method=args.normalization_method,
+        percentile_low=args.percentile_low, percentile_high=args.percentile_high,
+        illumination_method=args.illumination.replace("-", "_"),
+        rolling_ball_radius=args.rolling_ball_radius,
+        poly_sigma=args.poly_sigma, tophat_kernel=args.tophat_kernel,
+        clahe_illum_tile=args.clahe_illum_tile, clahe_illum_clip=args.clahe_illum_clip,
+        apply_clahe=args.clahe, clahe_clip=args.clahe_clip_limit,
+        clahe_grid=args.clahe_tile_size,
+        sharpen=args.sharpen, sharpen_sigma=args.sharpen_sigma,
+        sharpen_amount=args.sharpen_amount,
+    )
+
+
+def cmd_preprocess_ecm(args) -> dict:
+    from adipose_tpu_torch.wsi.ecm import process_directory
+
+    log = process_directory(args.input_dir, args.output_dir, ecm_config(args),
+                            visualize=args.visualize,
+                            max_visualizations=args.max_visualizations,
+                            test_mode=args.test_mode, test_samples=args.test_samples,
+                            device=args.device)
+    print(f"processed {len(log['processed'])}, errors {len(log['errors'])}")
+    return log
+
+
+def cmd_scale_ecm(args) -> int:
+    import cv2
+
+    from adipose_tpu_torch.wsi.compare import resample_image
+
+    in_dir, ref_dir = Path(args.input_dir), Path(args.reference_dir)
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    refs = {p.stem: p for p in ref_dir.iterdir() if p.is_file()}
+    n = 0
+    for p in sorted(in_dir.iterdir()):
+        if not p.is_file() or p.stem not in refs:
+            continue
+        img = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
+        ref = cv2.imread(str(refs[p.stem]), cv2.IMREAD_UNCHANGED)
+        if img is None or ref is None:
+            continue
+        if args.dry_run:
+            print(f"would resample {p.name}: {img.shape[:2]} -> {ref.shape[:2]}")
+            n += 1
+            continue
+        out = resample_image(img, ref.shape[:2], args.interpolation)
+        cv2.imwrite(str(out_dir / p.name), out)
+        n += 1
+    print(f"rescaled {n} images")
+    return n
+
+
+def cmd_compare_modalities(args) -> list:
+    from adipose_tpu_torch.wsi.compare import compare_directories
+
+    rows = compare_directories(args.pseudo_dir, args.ecm_dir, args.output_dir, args.n_samples,
+                               n_perfect=args.n_perfect, n_mismatch=args.n_mismatch,
+                               seed=args.seed, device=args.device)
+    print(f"compared {len(rows)} pairs → {args.output_dir}/comparison_metrics.csv")
+    return rows
+
+
+def cmd_tif2jpg(args) -> int:
+    from adipose_tpu_torch.wsi.compare import convert_tif_to_jpg
+
+    in_dir, out_dir = Path(args.input_dir), Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n = 0
+    for p in sorted(in_dir.glob("*.tif")) + sorted(in_dir.glob("*.tiff")):
+        if args.dry_run:
+            print(f"would convert {p.name}")
+            n += 1
+        elif convert_tif_to_jpg(p, out_dir / f"{p.stem}.jpg", args.quality, invert=args.invert):
+            n += 1
+    print(f"{'would convert' if args.dry_run else 'converted'} {n} images")
+    return n
 
 
 @contextlib.contextmanager

@@ -1,6 +1,6 @@
 """Dataclass configs, framework-free: copies of ``UNetConfig``,
-``ClassifierConfig``, ``TrainConfig``, ``EvalConfig`` and ``DataBuildConfig`` from
-``adipose_tpu/core/config.py``.
+``ClassifierConfig``, ``TrainConfig``, ``EvalConfig``, ``DataBuildConfig``,
+``WSIChunkConfig`` and ``ECMPreprocessConfig`` from ``adipose_tpu/core/config.py``.
 
 ``from_json`` ignores keys it does not know, so a config written by the JAX
 package loads here.
@@ -193,3 +193,63 @@ class DataBuildConfig(_JsonMixin):
     # quality filters apply only to NEGATIVES (positives always kept) and
     # kept white/blurry tiles stay IN the dataset instead of QA-routing
     protect_positives: bool = False
+
+
+@dataclass
+class WSIChunkConfig(_JsonMixin):
+    """WSI chunkers (``pre-post-processing_tools/large_wsi_to_small_wsi_MS.py`` /
+    ``..._Lucy.py``)."""
+
+    # MS adaptive chunker
+    primary_tile: int = 6144
+    edge_multiple: int = 1024
+    max_chunk_mb: float = 50.0
+    # Lucy grid chunker
+    grid_tile: int = 2048
+    grid_overlap: int = 204  # stride 1844
+    convert_16to8: bool = True
+    invert: bool = False
+    enhancement: str = "none"  # none|zscore|percentile|clahe
+    # Directory-driver knobs (..._MS.py:642-671)
+    max_dimension_px: int = 13112
+    min_dimension_px: int = 13112
+    output_format: str = "auto"  # auto|jpg|png|tiff
+    bit_depth: str = "auto"  # auto|8|16
+    save_enhanced: bool = False  # also write enhanced/ variants
+
+
+@dataclass
+class ECMPreprocessConfig(_JsonMixin):
+    """ECM fluorescence-channel cleanup
+    (``pre-post-processing_tools/preprocess_small_MS_SIMs.py``)."""
+
+    # stage 1: banding removal (defaults mirror the reference argparse,
+    # preprocess_small_MS_SIMs.py:853-878)
+    deband_method: str = "none"  # fft|morphological|column_norm|none
+    fft_freq_low: float = 0.01
+    fft_freq_high: float = 0.05
+    fft_width: int = 3
+    fft_sigma_scale: float = 0.5
+    fft_blend: float = 1.0
+    morph_width: int = 1
+    morph_height: int = 512
+    column_preserve_global: bool = True
+    # stage 2: normalization (:881-889)
+    normalization_method: str = "none"  # percentile|zscore|none
+    percentile_low: float = 1.0
+    percentile_high: float = 99.0
+    # stage 3: illumination correction (:892-914)
+    illumination_method: str = "none"  # rolling_ball|gaussian|tophat|clahe|none
+    rolling_ball_radius: int = 100
+    poly_sigma: float = 150.0
+    tophat_kernel: int = 301
+    clahe_illum_tile: int = 16
+    clahe_illum_clip: float = 2.0
+    # stage 4: contrast CLAHE (:917-923)
+    apply_clahe: bool = False
+    clahe_clip: float = 3.0
+    clahe_grid: int = 16
+    # stage 5: unsharp sharpening (:926-932)
+    sharpen: bool = False
+    sharpen_sigma: float = 1.0
+    sharpen_amount: float = 0.5

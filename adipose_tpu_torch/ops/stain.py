@@ -98,11 +98,14 @@ def reinhard_normalize_batch(rgb_batch_unit: torch.Tensor, ref_mean: torch.Tenso
     return _transfer(rgb2lab(rgb_batch_unit), (1, 2), ref_mean, ref_std)
 
 
-def normalize_image(rgb, reference: LabStats = DEFAULT_REFERENCE, device="cpu"):
+def normalize_image(rgb, reference: LabStats = DEFAULT_REFERENCE, device=None):
     """``ReinhardStainNormalizer.normalize_image``
     (``stain_normalization.py:94-146``): accepts uint8 or unit floats (numpy
     or torch) and returns a tensor in the range it received; uint8 output is
-    truncated, as ``astype(uint8)`` truncates."""
+    truncated, as ``astype(uint8)`` truncates. It runs on ``device``; by
+    default a tensor's own device, and the card for numpy input."""
+    if device is None:
+        device = rgb.device if torch.is_tensor(rgb) else "cuda"
     rgb = torch.as_tensor(np.asarray(rgb) if not torch.is_tensor(rgb) else rgb, device=device)
     is_uint8 = not rgb.is_floating_point() or bool(rgb.max() > 1.0)
     unit = _to_unit(rgb) if is_uint8 else rgb.to(torch.float32)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
 training, classifier training, classifier evaluation, dataset builds, WSI
-tools and conv-chain layout probe once on one CUDA GPU and check its
-kernels.
+tools, WSI preparation tools and conv-chain layout probe once on one CUDA
+GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -105,6 +105,22 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      four slides (launches by stage); timings: the build by stage, tiles/s,
      the device work per chunk of 16 by CUDA events, the tiling's idle
      share, reconstruct per slide, run-pipeline by stage
+  9e. WSI tools  under PyTorch's TF32 default, on a seeded 16-bit 16384x9216
+     slide (151 M px) and a 4096^2 one, through cli.main.main:
+     ``chunk-wsi --input-dir`` at its defaults (6 chunks named from
+     generate_axis_segments, the small slide skipped), with ``--enhancement
+     clahe --save-enhanced``, percentile and zscore (each written chunk the
+     JPEG of the card's array; the 4096x3072 tail chunk, and a 16-bit crop,
+     on the card against the CPU within 1 level) and ``--mode grid``;
+     ``preprocess-ecm`` over the chunks with four stage stacks (the first
+     on the card against the CPU on the tail chunk, within one clipped-CDF
+     step; the sigma-150 blur against the CPU), ``tif2jpg --invert``,
+     ``scale-ecm`` from half-size copies, ``compare-modalities`` on 1024^2
+     tiles stratified and with --n-perfect 3 --n-mismatch 2 (one pair's
+     metrics on the card against the CPU); no kernel launched, every device
+     tool allocates on the card; timings: each tool's wall time, the device
+     ms per 6144^2 chunk of each stack and of CLAHE, the idle share over
+     one preprocess-ecm run
   9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
@@ -2329,6 +2345,355 @@ def phase_builds(dev, tmp: Path, seg_run: Path, cls_run: Path, smi: str) -> dict
     return paths
 
 
+# Phase 9e: the WSI preparation tools. A 16-bit slide over the 13112 px gate
+# (151 M pixels: under PIL's 2 x 89,478,485-pixel limit, which the header
+# read keeps) and one under it; the chunker cuts the large one into 6 chunks.
+WSI_SLIDE = (9216, 16384)  # (H, W)
+WSI_SMALL = (4096, 4096)
+WSI_TAIL = (12288, 6144, 4096, 3072)  # (x, y, w, h) of the last chunk
+# ECM stage stacks, as a user sets them; the rolling ball is cut from its
+# default radius 100 to 25 so that the stack's run on the CPU stays short.
+ECM_STACKS = {
+    "fft_percentile_rolling_clahe_sharpen": [
+        "--deband", "fft", "--normalization-method", "percentile", "--illumination",
+        "rolling_ball", "--rolling-ball-radius", "25", "--clahe", "--sharpen"],
+    "morphological_zscore_tophat": ["--deband", "morphological", "--normalization-method",
+                                    "zscore", "--illumination", "tophat"],
+    "column_norm_gaussian": ["--deband", "column_norm", "--illumination", "gaussian"],
+    "clahe_visualize_test_mode": ["--illumination", "clahe", "--visualize", "--test-mode",
+                                  "--test-samples", "2"],
+}
+# The card against the CPU, uint8 after truncation. Means and the FFT sum in
+# other orders on the two devices, so a pixel on a level boundary moves by
+# one level (CLAHE's sums are exact on both). CLAHE after a float stage bins
+# by truncation: a pixel 1e-5 from an integer may take the next bin, which
+# maps it one step of the clipped CDF higher, at most 255 x (clip + excess)
+# / tile pixels = 255 x 4 / 256 levels at clip 3, and the sharpening after
+# it scales a one-pixel step by 1 + 0.5 x (1 - 0.16): at most 6 levels; only
+# pixels that close to an integer move.
+WSI_U8_LEVELS, WSI_U8_SHARE = 1, 1e-3
+WSI_STACK_LEVELS, WSI_STACK_SHARE = 6, 1e-3
+# The blur's 1201 taps at sigma 150 in float32, summed in other orders:
+# ~1e-6 relative; TF32 inputs would be ~1e-3 relative, tenths of a level.
+WSI_BLUR_ATOL = 1e-2
+WSI_SSIM_ATOL = 1e-5
+WSI_METRIC_RTOL = 1e-5
+WSI_TILE = 1024  # compare-modalities compares tiles
+# --mode grid: 2048 px tiles at stride 1844 make a 9 x 5 grid, grouped 5 x 5
+# into 2 pieces; (H, W) of each
+WSI_GRID_PIECES = {"slide_grid_5x5_tile_0.jpg": (9216, 9424),
+                   "slide_grid_5x5_tile_1.jpg": (7580, 7580)}
+
+
+@contextlib.contextmanager
+def pytorch_tf32_default():
+    """PyTorch's own TF32 default (cuDNN convolutions may use TF32, matmuls
+    not) within the block; the script's setting restored after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def wsi_slide(shape: tuple[int, int], dev, g) -> np.ndarray:
+    """A seeded 16-bit grayscale slide made on the card: tissue-like texture
+    (coarse and fine noise, interpolated), vertical banding (a 37 px period)
+    and noise, in 900..41000."""
+    h, w = shape
+    interp = torch.nn.functional.interpolate
+    coarse = torch.rand((1, 1, h // 256 + 2, w // 256 + 2), device=dev, generator=g)
+    coarse = interp(coarse, size=(h, w), mode="bicubic")[0, 0].clamp(0, 1)
+    fine = interp(torch.rand((1, 1, h // 4, w // 4), device=dev, generator=g), size=(h, w),
+                  mode="bilinear")[0, 0]
+    band = 2500.0 * torch.sin(torch.arange(w, device=dev) * (2 * math.pi / 37.0))
+    img = (3000.0 + 30000.0 * coarse * (0.6 + fine) + band
+           + 400.0 * torch.randn((h, w), device=dev, generator=g))
+    return img.clamp(900, 41000).to(torch.int32).cpu().numpy().astype(np.uint16)
+
+
+def u8_gap(a: np.ndarray, b: np.ndarray) -> tuple[int, float]:
+    """(largest level gap, share of pixels that differ)."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def run_cli(argv: list[str]) -> tuple[str, float, int]:
+    """``cli.main(argv)``: (its standard output, host seconds, the peak
+    device memory it allocated above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return out.getvalue(), time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before
+
+
+def image_size(path: Path) -> tuple[int, int]:
+    """(H, W) from the header."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return im.size[1], im.size[0]
+
+
+def phase_wsi_tools(dev, tmp: Path, smi: str) -> dict:
+    """``adipose-torch chunk-wsi`` (at its defaults; clahe with
+    --save-enhanced, percentile, zscore; --mode grid), ``preprocess-ecm``
+    with four stage stacks, ``tif2jpg --invert``, ``scale-ecm`` and
+    ``compare-modalities`` (stratified; --n-perfect/--n-mismatch) through
+    cli.main.main under PyTorch's TF32 default; the card against the CPU on
+    the tail chunk; no kernel launched; every device tool allocates on the
+    card; timings."""
+    import warnings
+
+    from PIL import Image
+
+    with pytorch_tf32_default(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", Image.DecompressionBombWarning)  # 151 M px is meant
+        return _phase_wsi_tools(dev, tmp, smi)
+
+
+def ecm_stack_config(flags: list[str]):
+    """The ECMPreprocessConfig that ``preprocess-ecm`` builds from ``flags``."""
+    return cli.ecm_config(cli.build_parser().parse_args(
+        ["preprocess-ecm", "--input-dir", "-", "--output-dir", "-", *flags]))
+
+
+def _phase_wsi_tools(dev, tmp: Path, smi: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from adipose_tpu_torch.ops.clahe import _clahe_any_shape
+    from adipose_tpu_torch.ops.fftops import gaussian_blur
+    from adipose_tpu_torch.wsi import chunker, compare, ecm
+
+    t_phase = time.perf_counter()
+    root = tmp / "wsi_tools"
+    slides = root / "slides"
+    slides.mkdir(parents=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    t0 = time.perf_counter()
+    big = wsi_slide(WSI_SLIDE, dev, g)
+    none = [cv2.IMWRITE_TIFF_COMPRESSION, 1]
+    cv2.imwrite(str(slides / "slide.tif"), big, none)
+    cv2.imwrite(str(slides / "small.tif"), wsi_slide(WSI_SMALL, dev, g), none)
+    print(f"wsi tools: a seeded 16-bit {WSI_SLIDE[1]}x{WSI_SLIDE[0]} slide "
+          f"({big.size / 1e6:.1f} M px) and a {WSI_SMALL[1]}x{WSI_SMALL[0]} one, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gray = chunker.convert_16_to_8bit(big)
+    # --bit-depth 16 keeps the slide's depth: a 16-bit chunk goes up as it is
+    crop16 = np.ascontiguousarray(big[:1024, :1024])
+    gap16 = u8_gap(chunker.enhance(crop16, "zscore", dev),
+                   chunker.enhance(crop16, "zscore", "cpu"))
+    if gap16[0] > WSI_U8_LEVELS or gap16[1] > WSI_U8_SHARE:
+        raise AssertionError(f"enhance zscore of a 16-bit crop, card vs CPU: {gap16}")
+    del big
+    x, y, w, h = WSI_TAIL
+    tail = np.ascontiguousarray(gray[y:y + h, x:x + w])
+    walls: dict[str, float] = {}
+    reset_launches()
+
+    # chunk-wsi at its defaults: 6 chunks named from generate_axis_segments
+    chunks = root / "chunks"
+    out, walls["chunk-wsi"], _ = run_cli(["chunk-wsi", "--input-dir", str(slides),
+                                          "--output-dir", str(chunks), "--device", str(dev)])
+    want = {f"slide_x{cx}_y{cy}_w{cw}_h{ch}.jpg": (ch, cw)
+            for cy, ch in chunker.generate_axis_segments(WSI_SLIDE[0])
+            for cx, cw in chunker.generate_axis_segments(WSI_SLIDE[1])}
+    names = sorted(want)
+    report = json.loads(out)
+    got = {p.name: image_size(p) for p in chunks.glob("*.jpg")}
+    if got != want or len(want) != 6 or \
+            report != {"processed": 1, "skipped": 1, "outputs": 6, "dry_run": False}:
+        raise AssertionError(f"chunk-wsi: {report}, {got}")
+    tail_name = f"slide_x{x}_y{y}_w{w}_h{h}.jpg"
+    print(f"chunk_wsi: adipose-torch chunk-wsi --input-dir at its defaults: {names}; "
+          f"small.tif skipped as small; {walls['chunk-wsi']:.2f} s")
+
+    # the enhancements on the card, each chunk's file the JPEG of the card's
+    # array, and the tail chunk on the card against the CPU
+    enhanced = {}
+    for method, extra in (("clahe", ["--save-enhanced"]), ("percentile", []), ("zscore", [])):
+        dst = root / f"chunks_{method}"
+        _, walls[f"chunk-wsi {method}"], peak = run_cli(
+            ["chunk-wsi", "--input-dir", str(slides), "--output-dir", str(dst),
+             "--enhancement", method, *extra, "--device", str(dev)])
+        got = sorted(p.name for p in dst.glob("*.jpg"))
+        if got != names or peak <= 0 or (extra and sorted(
+                p.name for p in (dst / "enhanced").glob("*.jpg")) != names):
+            raise AssertionError(f"chunk-wsi --enhancement {method}: {got}, peak {peak}")
+        card = chunker.enhance(tail, method, dev)
+        want = cv2.imencode(".jpg", card, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+        if (dst / tail_name).read_bytes() != want:
+            raise AssertionError(f"chunk-wsi --enhancement {method}: the tail chunk's file is "
+                                 f"not the card's array")
+        enhanced[method] = u8_gap(card, chunker.enhance(tail, method, "cpu"))
+        if enhanced[method][0] > WSI_U8_LEVELS or enhanced[method][1] > WSI_U8_SHARE:
+            raise AssertionError(f"enhance {method}, card vs CPU: {enhanced[method]} (bound "
+                                 f"{WSI_U8_LEVELS} level in {WSI_U8_SHARE})")
+        shutil.rmtree(dst)
+    print("chunk_wsi enhancements: clahe --save-enhanced, percentile, zscore on the 6 chunks; "
+          "the tail chunk card vs CPU (levels, share of pixels): "
+          + ", ".join(f"{m} {v[0]} in {v[1]:.2e}" for m, v in enhanced.items())
+          + f", zscore of a 16-bit 1024^2 crop {gap16[0]} in {gap16[1]:.2e} (bound "
+          f"{WSI_U8_LEVELS} level in {WSI_U8_SHARE}, TF32 at PyTorch's default)")
+
+    # --mode grid: 2048 px tiles at stride 1844 -> 9 x 5, grouped 5 x 5 in 2 pieces
+    grid = root / "grid"
+    _, walls["chunk-wsi grid"], _ = run_cli(["chunk-wsi", "--input-dir", str(slides),
+                                             "--output-dir", str(grid), "--mode", "grid",
+                                             "--device", str(dev)])
+    pieces = {p.name: image_size(p) for p in grid.glob("*.jpg")}
+    if pieces != WSI_GRID_PIECES:
+        raise AssertionError(f"chunk-wsi --mode grid: {pieces}")
+    shutil.rmtree(grid)
+
+    # preprocess-ecm over the chunks with four stage stacks; the idle share
+    # over the first run
+    ecm_out = {}
+    for i, (stack, flags) in enumerate(ECM_STACKS.items()):
+        dst = root / f"ecm_{i}"
+        argv = ["preprocess-ecm", "--input-dir", str(chunks), "--output-dir", str(dst), *flags,
+                "--device", str(dev)]
+        if i == 0:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, walls[f"preprocess-ecm {stack}"], peak = run_cli(argv)
+            busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+            ecm_idle = (busy, 1 - busy / walls[f"preprocess-ecm {stack}"])
+        else:
+            _, walls[f"preprocess-ecm {stack}"], peak = run_cli(argv)
+        log = json.loads((dst / "processing_log.json").read_text())
+        n_want = 3 if "--test-mode" in flags else 6
+        n_vis = len(list((dst / "visualizations").glob("*")))
+        if len(log["processed"]) != n_want or log["errors"] or peak <= 0 or \
+                ("--visualize" in flags and n_vis != n_want):
+            raise AssertionError(f"preprocess-ecm {stack}: {log['processed']}, {log['errors']}, "
+                                 f"peak {peak}")
+        ecm_out[stack] = dst
+
+    # the first stack on the card and on the CPU over the tail chunk's JPEG
+    stack0 = next(iter(ECM_STACKS))
+    cfg0 = ecm_stack_config(ECM_STACKS[stack0])
+    tail_jpg = cv2.imread(str(chunks / tail_name), cv2.IMREAD_GRAYSCALE)
+    card = ecm.preprocess_ecm_image(tail_jpg, cfg0, dev)
+    if (ecm_out[stack0] / tail_name).read_bytes() != cv2.imencode(
+            ".jpg", card, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes():
+        raise AssertionError("preprocess-ecm: the tail chunk's file is not the card's array")
+    t0 = time.perf_counter()
+    stack_gap = u8_gap(card, ecm.preprocess_ecm_image(tail_jpg, cfg0, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    if stack_gap[0] > WSI_STACK_LEVELS or stack_gap[1] > WSI_STACK_SHARE:
+        raise AssertionError(f"preprocess-ecm {stack0}, card vs CPU: {stack_gap} (bound "
+                             f"{WSI_STACK_LEVELS} levels in {WSI_STACK_SHARE})")
+    # the sigma-150 blur in full float32 under PyTorch's TF32 default
+    crop = torch.from_numpy(tail_jpg[:1024, :1024]).to(torch.float32)
+    blur_gap = float((gaussian_blur(crop.to(dev), 150.0).cpu() - gaussian_blur(crop, 150.0))
+                     .abs().max())
+    if blur_gap > WSI_BLUR_ATOL:
+        raise AssertionError(f"gaussian_blur sigma 150, card vs CPU: {blur_gap}")
+    print(f"preprocess_ecm: {len(ECM_STACKS)} stacks over the 6 chunks "
+          f"({', '.join(ECM_STACKS)}), no errors; {stack0} on the tail chunk card vs CPU: "
+          f"{stack_gap[0]} levels in {stack_gap[1]:.2e} of the pixels (bound "
+          f"{WSI_STACK_LEVELS} in {WSI_STACK_SHARE}; the CPU took {cpu_s:.1f} s); the sigma-150 "
+          f"blur of a 1024^2 crop card vs CPU {blur_gap:.2e} (TF32 at PyTorch's default)")
+
+    # tif2jpg --invert over the slides
+    jpgs = root / "tif2jpg"
+    out, walls["tif2jpg"], _ = run_cli(["tif2jpg", "--input-dir", str(slides), "--output-dir",
+                                        str(jpgs), "--invert"])
+    inv = cv2.imread(str(jpgs / "small.jpg"))
+    if out.strip() != "converted 2 images" or inv is None or inv.shape != (*WSI_SMALL, 3) or \
+            image_size(jpgs / "slide.jpg") != WSI_SLIDE:
+        raise AssertionError(f"tif2jpg: {out!r}")
+    shutil.rmtree(jpgs)
+
+    # scale-ecm from half-size copies back to the chunk dimensions
+    half, scaled = root / "half", root / "scaled"
+    half.mkdir()
+    for name in names:
+        im = cv2.imread(str(chunks / name), cv2.IMREAD_GRAYSCALE)
+        cv2.imwrite(str(half / name), cv2.resize(im, (im.shape[1] // 2, im.shape[0] // 2),
+                                                 interpolation=cv2.INTER_AREA))
+    out, walls["scale-ecm"], _ = run_cli(["scale-ecm", "--target-dir", str(half),
+                                          "--reference-dir", str(chunks), "--output-dir",
+                                          str(scaled)])
+    if out.strip() != "rescaled 6 images" or any(
+            image_size(scaled / n) != image_size(chunks / n) for n in names):
+        raise AssertionError(f"scale-ecm: {out!r}")
+    shutil.rmtree(scaled)
+
+    # compare-modalities over 1024^2 tiles of the tail chunk: its chunk
+    # against its first stack's ECM output, 4 of the 12 ECM tiles at half size
+    pseudo, ecm_tiles = root / "pseudo", root / "ecm_tiles"
+    pseudo.mkdir()
+    ecm_tiles.mkdir()
+    ecm_img = cv2.imread(str(ecm_out[stack0] / tail_name), cv2.IMREAD_GRAYSCALE)
+    tiles = [(r, c) for r in range(h // WSI_TILE) for c in range(w // WSI_TILE)]
+    for k, (r, c) in enumerate(tiles):
+        sl = np.s_[r * WSI_TILE:(r + 1) * WSI_TILE, c * WSI_TILE:(c + 1) * WSI_TILE]
+        cv2.imwrite(str(pseudo / f"t_r{r}_c{c}.png"), tail_jpg[sl])
+        e = ecm_img[sl]
+        cv2.imwrite(str(ecm_tiles / f"t_r{r}_c{c}.jpg"),
+                    cv2.resize(e, (WSI_TILE // 2, WSI_TILE // 2)) if k % 3 == 0 else e)
+    rows = {}
+    for label, extra in (("stratified", []),
+                         ("sampled", ["--n-perfect", "3", "--n-mismatch", "2"])):
+        dst = root / f"compare_{label}"
+        _, walls[f"compare-modalities {label}"], peak = run_cli(
+            ["compare-modalities", "--pseudo-dir", str(pseudo), "--ecm-dir", str(ecm_tiles),
+             "--output-dir", str(dst), *extra, "--device", str(dev)])
+        rows[label] = read_csv_rows(dst / "comparison_metrics.csv")
+        n_want = len(tiles) if label == "stratified" else 5
+        if len(rows[label]) != n_want or peak <= 0 or len(list(dst.glob("*_comparison.jpg"))) \
+                != n_want or not all(math.isfinite(float(v)) for r in rows[label]
+                                     for k, v in r.items() if k != "tile"):
+            raise AssertionError(f"compare-modalities {label}: {rows[label]}")
+    # one mismatched pair's metrics: the CSV's are the card's, and the card's
+    # against the CPU's
+    stem = "t_r0_c0"
+    a = cv2.imread(str(pseudo / f"{stem}.png"), cv2.IMREAD_GRAYSCALE)
+    b = cv2.imread(str(ecm_tiles / f"{stem}.jpg"), cv2.IMREAD_GRAYSCALE)
+    m_card, m_cpu = compare.compute_metrics(a, b, dev), compare.compute_metrics(a, b, "cpu")
+    logged = next(r for r in rows["stratified"] if r["tile"] == stem)
+    gaps = {k: abs(m_card[k] - m_cpu[k]) for k in m_card}
+    if any(abs(float(logged[k]) - v) > 1e-9 * max(1.0, abs(v)) for k, v in m_card.items()) or \
+            gaps["ssim"] > WSI_SSIM_ATOL or \
+            gaps["mse"] > WSI_METRIC_RTOL * m_cpu["mse"] or \
+            gaps["histogram_correlation"] > WSI_METRIC_RTOL * abs(m_cpu["histogram_correlation"]):
+        raise AssertionError(f"compare-modalities {stem}: csv {logged}, card {m_card}, "
+                             f"cpu {m_cpu}")
+    print(f"compare_modalities: stratified {len(rows['stratified'])} pairs, --n-perfect 3 "
+          f"--n-mismatch 2 {len(rows['sampled'])} pairs ({[r['tile'] for r in rows['sampled']]}); "
+          f"{stem} (ECM at half size) card vs CPU: mse {gaps['mse']:.2e}, ssim "
+          f"{gaps['ssim']:.2e}, histogram correlation {gaps['histogram_correlation']:.2e}; "
+          f"tif2jpg --invert and scale-ecm (half size -> chunk size) host-only")
+    if any(launches().values()):
+        raise AssertionError(f"the WSI tools launched a kernel: {launches()}")
+
+    # device ms per chunk of each stack and of CLAHE at 6144^2, by CUDA events
+    chunk0 = cv2.imread(str(chunks / names[0]), cv2.IMREAD_GRAYSCALE)
+    x0 = torch.from_numpy(chunk0).to(dev).to(torch.float32)
+    stack_ms = {k: cuda_ms(lambda t, c=ecm_stack_config(f): ecm.ecm_stages(t, c), [x0], 2)
+                for k, f in ECM_STACKS.items()}
+    clahe_ms = cuda_ms(lambda t: _clahe_any_shape(t, 2.0, 8), [x0], 5)
+    del x0
+    rounded = {k: round(v, 3) for k, v in walls.items()}
+    print(f"timing wsi tools (host clock, s): {json.dumps(rounded)} [{smi}]")
+    print(f"timing preprocess-ecm device ms per {chunk0.shape[1]}x{chunk0.shape[0]} chunk "
+          f"(CUDA events): {json.dumps({k: round(v, 2) for k, v in stack_ms.items()})}; "
+          f"chunk-wsi's CLAHE (clip 2, 8 x 8) {clahe_ms:.2f} ms [{smi}]")
+    print(f"timing preprocess-ecm {stack0} over the 6 chunks: "
+          f"{walls['preprocess-ecm ' + stack0]:.3f} s wall under the profiler, device busy "
+          f"{ecm_idle[0]:.3f} s ({100 * ecm_idle[1]:.1f}% idle); phase 9e "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    shutil.rmtree(root)
+    return {"wsi_tools": launches()}
+
+
 def phase_cls_timing(dev, g, cls: dict, smi: str) -> dict:
     """The classifier's train step in each phase, with and without
     ``augment_low_res``, and the prep alone, by CUDA events over distinct
@@ -2577,6 +2942,8 @@ def main() -> int:
         paths |= phase_classifier_eval(dev, Path(tmp), cls["run"], run, smi)
         torch.cuda.empty_cache()
         paths |= phase_builds(dev, Path(tmp), run, cls["run"], smi)
+        torch.cuda.empty_cache()
+        paths |= phase_wsi_tools(dev, Path(tmp), smi)
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

@@ -15,9 +15,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORTED = ("segment", "classify", "evaluate", "evaluate-checkpoints", "eval-classifier",
           "tile-classification-eval", "visualize-metrics", "pipeline", "train-unet",
           "train-classifier", "build-dataset", "build-test-dataset", "build-class-dataset",
-          "build-test-class-dataset", "run-pipeline", "reconstruct", "classification-overlay")
+          "build-test-class-dataset", "run-pipeline", "reconstruct", "classification-overlay",
+          "chunk-wsi", "preprocess-ecm", "scale-ecm", "compare-modalities", "tif2jpg")
 # the host-only subcommands: no --device
-HOST_ONLY = ("visualize-metrics", "classification-overlay")
+HOST_ONLY = ("visualize-metrics", "classification-overlay", "scale-ecm", "tif2jpg")
 # Not on the card's machine (numpy, scipy, einops and cv2 are); the JAX package
 # and JAX itself are held out by test_torch_segment.py::test_cli_imports_without_jax.
 FORBIDDEN = {"sklearn", "pandas", "matplotlib", "jax", "jaxlib", "adipose_tpu"}

@@ -7,7 +7,9 @@ the four dataset builds (``build-dataset``, ``build-test-dataset``,
 ``build-class-dataset``, ``build-test-class-dataset``), ``run-pipeline``,
 ``reconstruct``, ``classification-overlay`` and the WSI preparation tools
 (``chunk-wsi``, ``preprocess-ecm``, ``scale-ecm``, ``compare-modalities``,
-``tif2jpg``) are those subcommands of ``adipose`` (``adipose_tpu/cli/main.py``)
+``tif2jpg``) and the stain and analysis tools (``select-stain-reference``,
+``validate-stain``, ``analyze-tiles``, ``visualize-preprocessing``) are those
+subcommands of ``adipose`` (``adipose_tpu/cli/main.py``)
 on a torch device, with the same flags plus ``--device`` where device work
 runs. They read
 and write ``params.npz`` weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
@@ -89,6 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_builds(sub)
     _add_wsi_tools(sub)
     _add_wsi_prep(sub)
+    _add_analysis(sub)
     return parser
 
 
@@ -489,6 +492,67 @@ def _add_wsi_prep(sub) -> None:
     tj.add_argument("--invert", action="store_true")
     tj.add_argument("--dry-run", action="store_true")
     tj.set_defaults(func=cmd_tif2jpg)
+
+
+def _add_analysis(sub) -> None:
+    """``analyze-tiles``, ``visualize-preprocessing``, ``select-stain-reference``
+    and ``validate-stain``: every flag name and default of the ``adipose``
+    subcommands plus ``--device``."""
+    an = sub.add_parser("analyze-tiles", help="tile-quality census + "
+                        "preprocessing-variant comparison")
+    an.add_argument("--tiles-dir", required=True)
+    an.add_argument("--output-dir", required=True)
+    an.add_argument("--census", action="store_true")
+    an.add_argument("--compare-preprocessing", action="store_true")
+    an.add_argument("--morphology", action="store_true",
+                    help="cell-morphology census over MASK tiles -> "
+                         "optimized post-processing parameters")
+    an.add_argument("--contrast-groups", action="store_true",
+                    help="quality grouping -> adaptive-CLAHE cutoffs "
+                         "(image_quality_analysis.csv + generated function)")
+    an.add_argument("--compare-normalization", metavar="MODE",
+                    choices=["clahe-percentile", "normalization-methods",
+                             "requested-methods", "final-methods",
+                             "very-final", "all"],
+                    help="one reference compare_*.py suite (panels + metrics "
+                         "CSV + summary md); 'all' runs every mode")
+    an.add_argument("--comprehensive-normalization", action="store_true",
+                    help="dataset-wide 4-method quality scoring -> "
+                         "dataset_normalization_metrics.csv + dashboard")
+    an.add_argument("--adipocyte-dir", default=None,
+                    help="adipocyte reference tiles for similarity scoring "
+                         "(comprehensive mode)")
+    an.add_argument("--n-samples", "--samples-per-split", dest="n_samples",
+                    type=int, default=10)
+    an.add_argument("--n-per-split", type=int, default=2,
+                    help="contrast-group samples per train/val/test split")
+    an.add_argument("--max-tiles", type=int, default=None)
+    _add_device(an, cmd_analyze_tiles)
+
+    vp = sub.add_parser("visualize-preprocessing",
+                        help="Original->Reinhard->z-score->percentile pipeline "
+                             "panels (color + grayscale)")
+    vp.add_argument("--tiles-dir", required=True)
+    vp.add_argument("--output-dir", required=True)
+    vp.add_argument("--n-samples", type=int, default=7)
+    vp.add_argument("--stats", default=None,
+                    help="normalization_stats.json for the z-score stage "
+                         "(default: computed over the samples)")
+    _add_device(vp, cmd_visualize_preprocessing)
+
+    ss = sub.add_parser("select-stain-reference",
+                        help="rank candidate tiles, write stain metadata")
+    ss.add_argument("--candidate-dir", required=True)
+    ss.add_argument("--output-dir", required=True)
+    ss.add_argument("--max-candidates", type=int, default=350)
+    _add_device(ss, cmd_select_stain_reference)
+
+    sv = sub.add_parser("validate-stain", help="cross-validate a stain reference")
+    sv.add_argument("--metadata", required=True)
+    sv.add_argument("--sample-dir", required=True)
+    sv.add_argument("--output-dir", required=True)
+    sv.add_argument("--n-samples", type=int, default=20)
+    _add_device(sv, cmd_validate_stain)
 
 
 def _add_eval_opts(p) -> None:
@@ -1743,6 +1807,78 @@ def cmd_tif2jpg(args) -> int:
             n += 1
     print(f"{'would convert' if args.dry_run else 'converted'} {n} images")
     return n
+
+
+def cmd_analyze_tiles(args) -> dict:
+    """Each requested mode in the JAX package's order (the census when none
+    is asked for); each prints what the JAX CLI prints. Returns each mode's
+    result by name."""
+    from adipose_tpu_torch.data import analysis
+
+    if not (args.census or args.compare_preprocessing or args.morphology
+            or args.contrast_groups or args.compare_normalization
+            or args.comprehensive_normalization):
+        args.census = True
+    out, dev = {}, args.device
+    if args.census:
+        out["census"] = analysis.tile_quality_census(args.tiles_dir, args.output_dir,
+                                                     max_tiles=args.max_tiles, device=dev)
+        print(json.dumps(out["census"], indent=2))
+    if args.compare_preprocessing:
+        out["compare_preprocessing"] = analysis.preprocessing_comparison(
+            args.tiles_dir, args.output_dir, n_samples=args.n_samples, device=dev)
+        print(f"wrote preprocessing comparison to {args.output_dir}")
+    if args.morphology:
+        out["morphology"] = analysis.morphology_census(args.tiles_dir, args.output_dir,
+                                                       n_samples=args.n_samples)
+        print(json.dumps(out["morphology"]["optimized_parameters"], indent=2))
+    if args.contrast_groups:
+        out["contrast_groups"] = analysis.contrast_group_census(
+            args.tiles_dir, args.output_dir, n_per_split=args.n_per_split, device=dev)
+        print(json.dumps(out["contrast_groups"], indent=2))
+    if args.compare_normalization:
+        modes = (sorted(analysis.NORM_COMPARISON_MODES)
+                 if args.compare_normalization == "all" else [args.compare_normalization])
+        out["compare_normalization"] = []
+        for mode in modes:
+            res = analysis.normalization_comparison(args.tiles_dir, args.output_dir, mode,
+                                                    n_samples=args.n_per_split, device=dev)
+            out["compare_normalization"].append(res)
+            print(json.dumps(res, indent=2))
+    if args.comprehensive_normalization:
+        out["comprehensive_normalization"] = analysis.comprehensive_normalization_analysis(
+            args.tiles_dir, args.output_dir, n_per_split=args.n_samples,
+            adipocyte_dir=args.adipocyte_dir, device=dev)
+        print(json.dumps(out["comprehensive_normalization"], indent=2))
+    return out
+
+
+def cmd_visualize_preprocessing(args) -> dict:
+    from adipose_tpu_torch.data.analysis import preprocessing_pipeline_visualization
+
+    out = preprocessing_pipeline_visualization(args.tiles_dir, args.output_dir,
+                                               n_samples=args.n_samples,
+                                               stats_path=args.stats, device=args.device)
+    print(json.dumps(out, indent=2))
+    return out
+
+
+def cmd_select_stain_reference(args) -> dict:
+    from adipose_tpu_torch.data.stain_select import select_stain_reference
+
+    meta = select_stain_reference(args.candidate_dir, args.output_dir, args.max_candidates,
+                                  device=args.device)
+    print(json.dumps(meta["selected_reference"], indent=2))
+    return meta
+
+
+def cmd_validate_stain(args) -> dict:
+    from adipose_tpu_torch.data.stain_select import validate_stain_reference
+
+    summary = validate_stain_reference(args.metadata, args.sample_dir, args.output_dir,
+                                       args.n_samples, device=args.device)
+    print(f"valid {summary['n_valid']}/{summary['n_samples']}")
+    return summary
 
 
 @contextlib.contextmanager

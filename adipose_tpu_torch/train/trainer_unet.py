@@ -401,5 +401,11 @@ class UNetTrainer:
                                        cfg.ema_decay_phase2, freeze_encoder=False,
                                        save_ema=True, augment_tier=tier)
         self._save("weights_best_overall", best2)
+        try:
+            from adipose_tpu_torch.train.plots import plot_training_history
+
+            plot_training_history(self.ckpt_dir)
+        except Exception:
+            pass  # plotting is best-effort; never fail a finished run
         return {"phase1_best_dice": dice1, "phase2_best_dice": dice2,
                 "checkpoint_dir": str(self.ckpt_dir)}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
 training, classifier training, classifier evaluation, dataset builds, WSI
-tools, WSI preparation tools and conv-chain layout probe once on one CUDA
-GPU and check its kernels.
+tools, WSI preparation tools, stain and analysis tools and conv-chain layout
+probe once on one CUDA GPU and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -53,9 +53,10 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
   8. train   ``adipose-torch train-unet`` (``cli.main.main``) at its defaults
      (init_nb 44, 1024^2, batch 2, bf16, deep supervision, OHEM, EMA,
      cosine, moderate augmentation, percentile) for one epoch per phase on
-     a seeded 8 + 4 tile dataset: the artifact contract, finite losses, an
-     encoder untouched by phase 1, launches D 2 and P 1 per step and P 1 per
-     val batch; the run then served by ``adipose-torch segment``
+     a seeded 8 + 4 tile dataset: the artifact contract (training_history.png
+     included), finite losses, an encoder untouched by phase 1, launches D 2
+     and P 1 per step and P 1 per val batch; the run then served by
+     ``adipose-torch segment``
   9. fast head ``UNetTrainer`` with ``UNetConfig(fast_head=True)``: kernels
      B and B' 3 per step; its first step through the kernels against the
      same step with the plain versions
@@ -121,11 +122,26 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      tool allocates on the card; timings: each tool's wall time, the device
      ms per 6144^2 chunk of each stack and of CLAHE, the idle share over
      one preprocess-ecm run
+  9f. stain and analysis tools  through cli.main.main on seeded 1024^2 RGB
+     tiles: ``select-stain-reference`` over 32 candidates, ``validate-stain``
+     with the metadata it wrote over 8 samples; ``analyze-tiles`` on a
+     dataset/{train,val,test}/images tree of 32 tiles with every mode
+     (--census, --compare-preprocessing, --contrast-groups,
+     --compare-normalization all, --comprehensive-normalization
+     --adipocyte-dir) and --morphology over 10 ellipse masks;
+     ``visualize-preprocessing`` at its defaults: each tool's artifacts, every
+     device tool allocates on the card, no kernel launched; the selected
+     candidate's metrics, one tile's quality metrics and the census verdicts
+     on the card against the CPU; timings: each tool's wall time, the device
+     idle share over one census run
   9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
-     chain without it; each chain's device activities by name, and the
-     kernels the chain through I adds besides I (the probe's answer)
+     chain without it; I once per call in each profiled session, by the
+     wrapper's counter; each chain's device activities by name (a session
+     that leaves launches unrecorded is repeated, up to three), and the
+     kernels the chain through I adds besides I (the probe's answer); I's
+     time on the chain's view by CUDA events
  10. timing  CUDA events, after warmup, on distinct batches, in turns with
      the plain versions; device time per call from torch.profiler; train
      step and augmentation at batch 2 and 8, and the device's idle share
@@ -226,6 +242,9 @@ HEAD_AUTOGRAD_RTOL = 1e-5
 # The previous designs' device times of kernels I and B' at the timing
 # shapes, for reference (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
 PREVIOUS_DESIGN_MS = {"ident_hwbc": 1.5561, "diff_sigmoid_head_backward": 0.3249}
+# Profiler sessions of each probe chain at most, while one leaves launches
+# unrecorded (the launch check itself reads the wrappers' counters).
+PROBE_SESSIONS = 3
 # H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel's work.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -597,14 +616,34 @@ def phase_layout_probe(dev, smi: str) -> dict[str, int]:
         raise AssertionError(f"chain_kernel {kernel.item()} vs chain_plain {plain.item()}: "
                              f"not bit-equal")
 
+    # The launch check reads the wrapper's counter; the profiler gives only
+    # the per-activity breakdown. A session that leaves launches unrecorded
+    # is repeated, up to PROBE_SESSIONS; what the last one lost is printed.
     iters = 3
-    acts = {name: device_activities(lambda a: fn(*a), [args], iters)
-            for name, fn in (("chain_plain", probe.chain_plain),
-                             ("chain_kernel", probe.chain_kernel))}
+    acts, lost = {}, {}
+    for name, fn in (("chain_plain", probe.chain_plain), ("chain_kernel", probe.chain_kernel)):
+        want_i = 1 + iters if name == "chain_kernel" else 0  # a warm-up and the profiled calls
+        for session in range(1, PROBE_SESSIONS + 1):
+            reset_launches()
+            acts[name] = device_activities(lambda a, f=fn: f(*a), [args], iters)
+            if launches()["ident_hwbc"] != want_i:
+                raise AssertionError(f"{name}: kernel I launched {launches()['ident_hwbc']} "
+                                     f"times in {1 + iters} calls, want {want_i}")
+            recorded_i = sum(n for k, (_, _, n) in acts[name].items() if "ident_hwbc_kernel" in k)
+            missing = {k: per_call * iters - n for k, (_, per_call, n) in acts[name].items()
+                       if "ident_hwbc_kernel" not in k and per_call * iters > n}
+            if want_i and recorded_i < iters:
+                missing["ident_hwbc_kernel"] = iters - recorded_i
+            lost[name] = {"session": session, "unrecorded": missing}
+            if not missing:
+                break
+    print("  profiler sessions (the session used; the launches it left unrecorded, by name): "
+          + json.dumps(lost))
     ident = {k: v for k, v in acts["chain_kernel"].items() if "ident_hwbc_kernel" in k}
-    if [per_call for _, per_call, _ in ident.values()] != [1]:
-        raise AssertionError(f"kernel I under the profiler {ident}, want one launch a call")
-    ident_ms = sum(ms for ms, _, _ in ident.values())
+    # I's time by CUDA events on the chain's own (H, W, B, C) view
+    y = torch.relu(probe.conv(args[0], args[1]))
+    ident_ms = cuda_ms(ident_hwbc, [y.permute(2, 3, 0, 1)], iters)
+    del y
     # launched more often a call through I than without it, I aside
     extra = sorted(k for k, (_, per_call, _) in acts["chain_kernel"].items()
                    if k not in ident and per_call > acts["chain_plain"].get(k, (0.0, 0, 0))[1])
@@ -613,8 +652,8 @@ def phase_layout_probe(dev, smi: str) -> dict[str, int]:
           f"{counts} over {calls} chain_kernel calls; chain_kernel bit-equal to chain_plain "
           f"(max {plain.item()}) with cuDNN deterministic; plain {times['plain']:.4f} ms, "
           f"kernel-ident {times['kernel-ident']:.4f} ms by CUDA events, gap "
-          f"{times['kernel-ident'] - times['plain']:.4f} ms; kernel I {ident_ms:.4f} ms device "
-          f"time per call by torch.profiler [{smi}]")
+          f"{times['kernel-ident'] - times['plain']:.4f} ms; kernel I {ident_ms:.4f} ms a call by "
+          f"CUDA events on the chain's view [{smi}]")
     for name, act in acts.items():
         print(f"  {name} device ms per call (launches a call, recorded over {iters} calls): "
               + "; ".join(f"{k[:90]} {ms:.4f} ({per_call}, {n})"
@@ -1255,10 +1294,14 @@ def phase_train_cli(dev, tmp: Path, data: Path, smi: str) -> dict:
         raise AssertionError(f"train-unet launches {counts}, want {want}")
     run = tmp / "ck" / "smoke_adipose_sybreosin_1024_finetune_v3"
     rows = check_run(run, "train-unet")
+    history = cv2.imread(str(run / "training_history.png"))
+    if history is None:
+        raise AssertionError("train-unet: no training_history.png")
     print(f"train: adipose-torch train-unet at its defaults (init_nb {INIT_NB}, {SIZE}^2, batch "
           f"{TRAIN_BATCH}, bf16, deep supervision, OHEM, EMA, cosine, moderate, percentile), "
           f"1 + 1 epochs on {TRAIN_TILES} + {VAL_TILES} tiles: {wall:.2f} s incl. start-up; "
-          f"launches {counts}; artifacts complete, phase 1 left the encoder bit-unchanged; "
+          f"launches {counts}; artifacts complete (training_history.png {history.shape[1]}x"
+          f"{history.shape[0]}), phase 1 left the encoder bit-unchanged; "
           f"phase 1 loss {rows[1]['loss']:.4f} val dice {rows[1]['val_dice_coef']:.4f}, "
           f"phase 2 loss {rows[2]['loss']:.4f} val dice {rows[2]['val_dice_coef']:.4f}, "
           f"epoch times {rows[1]['epoch_time_s']:.2f} / {rows[2]['epoch_time_s']:.2f} s [{smi}]")
@@ -2694,6 +2737,270 @@ def _phase_wsi_tools(dev, tmp: Path, smi: str) -> dict:
     return {"wsi_tools": launches()}
 
 
+# ---- 9f: stain-reference selection and validation, the tile analyses --------------
+
+STAIN_CANDIDATES, STAIN_SAMPLES = 32, 8
+ANALYSIS_SPLITS = {"train": 16, "val": 8, "test": 8}  # 1024^2 RGB JPEG tiles
+ANALYSIS_ADIPO, ANALYSIS_MASKS = 4, 10
+# The bounds of tests/test_torch_stain_select.py and tests/test_torch_analysis.py:
+# device metrics are float32 reductions in another order (1e-5 relative);
+# the local-contrast field (float64 sums, exact on both devices) is held
+# to the tests' bound against JAX, which it meets with room to spare here.
+ANALYSIS_RTOL, ANALYSIS_LOCAL_RTOL = 1e-5, 5e-4
+ANALYSIS_MODES = ("clahe-percentile", "final-methods", "normalization-methods",
+                  "requested-methods", "very-final")
+
+
+def analysis_tiles(n: int, dev, g) -> list[np.ndarray]:
+    """``n`` seeded RGB uint8 tiles of SIZE^2 made on the card: a tinted
+    smooth texture (the tint varied from pink to golden), noise and bright
+    round blobs, at three contrasts; every eighth tile nearly white (empty)
+    and every eighth but one smooth and noiseless (blurry)."""
+    interp = torch.nn.functional.interpolate
+    yy, xx = torch.meshgrid(torch.arange(SIZE, device=dev), torch.arange(SIZE, device=dev),
+                            indexing="ij")
+    out = []
+    for i in range(n):
+        coarse = interp(torch.rand((1, 3, 18, 18), device=dev, generator=g), size=(SIZE, SIZE),
+                        mode="bicubic")[0].permute(1, 2, 0).clamp(0, 1)
+        tint = torch.tensor([190.0, 140.0, 110.0], device=dev) * (
+            0.6 + 0.5 * torch.rand(3, device=dev, generator=g))
+        contrast = 0.3 + 0.35 * (i % 3)
+        noise = torch.randn((SIZE, SIZE, 3), device=dev, generator=g)
+        img = tint * (0.6 + 0.6 * contrast * coarse) + (0.0 if i % 8 == 6 else 8.0) * noise
+        if i % 8 == 7:
+            img = 246.0 + 4.0 * noise
+        blobs = torch.zeros((SIZE, SIZE), dtype=torch.bool, device=dev)
+        centres = torch.rand((12, 3), device=dev, generator=g) * SIZE
+        for cy, cx, r in centres.tolist():
+            blobs |= (yy - cy) ** 2 + (xx - cx) ** 2 < (0.02 * SIZE + 0.08 * r) ** 2
+        if i % 8 != 6:
+            img = torch.where(blobs[..., None], torch.tensor([240.0, 235.0, 230.0], device=dev),
+                              img)
+        out.append(img.clamp(0, 255).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def ellipse_mask(rng: np.random.Generator) -> np.ndarray:
+    m = np.zeros((SIZE, SIZE), np.uint8)
+    for _ in range(int(rng.integers(20, 40))):
+        cx, cy = (int(v) for v in rng.integers(30, SIZE - 30, 2))
+        axes = (int(rng.integers(10, 45)), int(rng.integers(8, 35)))
+        cv2.ellipse(m, (cx, cy), axes, float(rng.integers(0, 180)), 0, 360, 255, -1)
+    return m
+
+
+def write_analysis_data(root: Path, dev, g) -> dict[str, Path]:
+    """Candidates, validation samples, a dataset/{train,val,test}/images tree,
+    adipocyte references (JPEG, as the dataset builds write tiles) and mask PNGs."""
+    dirs = {k: root / k for k in ("candidates", "samples", "dataset", "adipo", "masks")}
+    jobs = []
+    for i, t in enumerate(analysis_tiles(STAIN_CANDIDATES, dev, g)):
+        jobs.append((dirs["candidates"] / f"cand_{i:02d}.jpg", t))
+    for i, t in enumerate(analysis_tiles(STAIN_SAMPLES, dev, g)):
+        jobs.append((dirs["samples"] / f"sample_{i}.jpg", t))
+    for split, n in ANALYSIS_SPLITS.items():
+        for i, t in enumerate(analysis_tiles(n, dev, g)):
+            jobs.append((dirs["dataset"] / split / "images" / f"{split}_r{i}_c0.jpg", t))
+    for i, t in enumerate(analysis_tiles(ANALYSIS_ADIPO, dev, g)):
+        jobs.append((dirs["adipo"] / f"adipocyte_{i}.jpg", t))
+    for path, _ in jobs:
+        path.parent.mkdir(parents=True, exist_ok=True)
+    thread_map(lambda job: cv2.imwrite(str(job[0]), cv2.cvtColor(job[1], cv2.COLOR_RGB2BGR)),
+               jobs)
+    dirs["masks"].mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 13)
+    for i in range(ANALYSIS_MASKS):
+        cv2.imwrite(str(dirs["masks"] / f"mask_{i}.png"), ellipse_mask(rng))
+    return dirs
+
+
+def metric_gaps(card: dict, cpu: dict, local: tuple = ()) -> dict[str, float]:
+    """Relative gap of each numeric metric (nested dicts flattened); raises
+    beyond ANALYSIS_RTOL (ANALYSIS_LOCAL_RTOL for the ``local`` keys)."""
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                yield prefix + k, float(v)
+
+    a, b = dict(flat(card)), dict(flat(cpu))
+    gaps = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+    bad = {k: v for k, v in gaps.items()
+           if v > (ANALYSIS_LOCAL_RTOL if k in local else ANALYSIS_RTOL)}
+    if bad or a.keys() != b.keys():
+        raise AssertionError(f"card vs CPU beyond the bound: {bad}")
+    return gaps
+
+
+def phase_stain_analysis(dev, tmp: Path, smi: str) -> dict:
+    """``adipose-torch select-stain-reference`` over 32 seeded 1024^2 RGB
+    candidates and ``validate-stain`` over 8 samples; ``analyze-tiles`` with
+    every mode on a seeded 1024^2 dataset tree (``--census``,
+    ``--compare-preprocessing``, ``--contrast-groups``,
+    ``--compare-normalization all``, ``--comprehensive-normalization
+    --adipocyte-dir``) and ``--morphology`` over ellipse masks;
+    ``visualize-preprocessing`` at its defaults; through cli.main.main. Each
+    tool's artifacts; every device tool allocates on the card; no kernel
+    launched; one candidate's metrics and one tile's quality metrics, and
+    the census verdicts, card against CPU; each tool's wall time and the
+    device idle share over one census run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adipose_tpu_torch.data import analysis, stain_select
+
+    t_phase = time.perf_counter()
+    root = tmp / "stain_analysis"
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    dirs = write_analysis_data(root, dev, g)
+    n_tiles = sum(ANALYSIS_SPLITS.values())
+    print(f"stain and analysis tools: {STAIN_CANDIDATES} candidates, {STAIN_SAMPLES} samples, "
+          f"a {n_tiles}-tile dataset tree, {ANALYSIS_ADIPO} adipocyte references ({SIZE}^2 RGB "
+          f"JPEG) and {ANALYSIS_MASKS} ellipse masks written in {time.perf_counter() - t0:.1f} s")
+    walls: dict[str, float] = {}
+    out = root / "out"
+    dev_args = ["--device", str(dev)]
+    reset_launches()
+
+    # stain reference: select, then validate with the metadata it wrote
+    printed, walls["select-stain-reference"], peak = run_cli(
+        ["select-stain-reference", "--candidate-dir", str(dirs["candidates"]), "--output-dir",
+         str(out / "stain"), *dev_args])
+    meta = json.loads((out / "stain" / "stain_reference_metadata.json").read_text())
+    report = (out / "stain" / "stain_reference_selection_report.md").read_text()
+    if meta["n_candidates"] != STAIN_CANDIDATES or peak <= 0 or \
+            json.loads(printed) != meta["selected_reference"] or report.count("\n| ") != 21:
+        raise AssertionError(f"select-stain-reference: {meta}, peak {peak}")
+    printed, walls["validate-stain"], peak = run_cli(
+        ["validate-stain", "--metadata", str(out / "stain" / "stain_reference_metadata.json"),
+         "--sample-dir", str(dirs["samples"]), "--output-dir", str(out / "validate"), *dev_args])
+    val = json.loads((out / "validate" / "stain_validation_report.json").read_text())
+    if val["n_samples"] != STAIN_SAMPLES or peak <= 0 or \
+            printed.strip() != f"valid {val['n_valid']}/{STAIN_SAMPLES}":
+        raise AssertionError(f"validate-stain: {printed!r}, peak {peak}")
+    best = cv2.cvtColor(cv2.imread(meta["selected_reference"]["path"]), cv2.COLOR_BGR2RGB)
+    cand_gap = metric_gaps(stain_select.analyze_candidate(best, dev),
+                           stain_select.analyze_candidate(best, "cpu"))
+    print(f"select_stain_reference: {meta['selected_reference']['name']} of {STAIN_CANDIDATES} "
+          f"(composite {meta['selected_reference']['composite_score']:.4f}); validate-stain: "
+          f"{printed.strip()}; the selected tile's metrics card vs CPU: largest relative gap "
+          f"{max(cand_gap.values()):.2e} ({max(cand_gap, key=cand_gap.get)}; bound "
+          f"{ANALYSIS_RTOL})")
+
+    # the census, under the profiler for the idle share; the same census on the CPU
+    tree = str(dirs["dataset"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        printed, walls["analyze-tiles --census"], peak = run_cli(
+            ["analyze-tiles", "--tiles-dir", tree, "--output-dir", str(out / "census"), *dev_args])
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    census_idle = (busy, 1 - busy / walls["analyze-tiles --census"])
+    summary = json.loads(printed)
+    card_rows = read_csv_rows(out / "census" / "census.csv")
+    analysis.tile_quality_census(tree, out / "census_cpu", device="cpu")
+    cpu_rows = read_csv_rows(out / "census_cpu" / "census.csv")
+    verdicts = ("tile", "white_ratio", "is_empty", "is_blurry", "is_good", "mean", "std")
+    lap_gap = max(abs(float(a["laplacian_var"]) - float(b["laplacian_var"]))
+                  / float(b["laplacian_var"]) for a, b in zip(card_rows, cpu_rows))
+    if summary["n_tiles"] != n_tiles or peak <= 0 or len(card_rows) != len(cpu_rows) or any(
+            [a[k] for k in verdicts] != [b[k] for k in verdicts]
+            for a, b in zip(card_rows, cpu_rows)) or lap_gap > ANALYSIS_RTOL:
+        raise AssertionError(f"analyze-tiles --census: {summary}, peak {peak}, laplacian "
+                             f"variance card vs CPU {lap_gap}")
+    print(f"analyze_tiles census: {summary['n_tiles']} tiles, {summary['n_good']} good, "
+          f"{summary['n_empty']} empty, {summary['n_blurry']} blurry; verdicts, white ratios and "
+          f"moments equal card vs CPU, the Laplacian variance within {lap_gap:.2e}")
+
+    # the other modes, one call each
+    modes = {"compare-preprocessing": ["--compare-preprocessing"],
+             "contrast-groups": ["--contrast-groups"],
+             "compare-normalization all": ["--compare-normalization", "all"],
+             "comprehensive-normalization": ["--comprehensive-normalization", "--adipocyte-dir",
+                                             str(dirs["adipo"])]}
+    printed_by = {}
+    for mode, flags in modes.items():
+        dst = out / mode.split()[0]
+        printed_by[mode], walls[f"analyze-tiles {mode}"], peak = run_cli(
+            ["analyze-tiles", "--tiles-dir", tree, "--output-dir", str(dst), *flags, *dev_args])
+        if peak <= 0:
+            raise AssertionError(f"analyze-tiles {mode} allocated nothing on the card")
+    d = out / "compare-preprocessing"
+    if len(read_csv_rows(d / "preprocessing_comparison.csv")) != 10 * len(analysis.VARIANTS) or \
+            [r["variant"] for r in read_csv_rows(d / "preprocessing_summary.csv")] != \
+            sorted(analysis.VARIANTS) or len(list(d.glob("*_variants.jpg"))) != 10:
+        raise AssertionError("analyze-tiles --compare-preprocessing: artifacts")
+    d = out / "contrast-groups"
+    groups = json.loads(printed_by["contrast-groups"])
+    if groups["n_images"] != 2 * len(ANALYSIS_SPLITS) or any(not (d / a).exists() for a in (
+            "image_quality_analysis.csv", "adaptive_clahe_cutoffs.json",
+            "contrast_analysis_grouping.png", "CONTRAST_GROUPING_ANALYSIS.md",
+            "adaptive_clahe_function.py")):
+        raise AssertionError(f"analyze-tiles --contrast-groups: {groups}")
+    d = out / "compare-normalization"
+    for mode in ANALYSIS_MODES:
+        n_pngs = len(list(d.glob(f"*_sample?_{analysis._MODE_SUFFIX[mode]}.png")))
+        rows = read_csv_rows(d / f"{mode.replace('-', '_')}_metrics.csv")
+        if n_pngs != 2 * len(ANALYSIS_SPLITS) or \
+                len(rows) != n_pngs * len(analysis.NORM_COMPARISON_MODES[mode]) or \
+                not (d / f"{mode.upper().replace('-', '_')}_COMPARISON_SUMMARY.md").exists():
+            raise AssertionError(f"analyze-tiles --compare-normalization {mode}: {n_pngs} panels, "
+                                 f"{len(rows)} rows")
+    d = out / "comprehensive-normalization"
+    comp = json.loads(printed_by["comprehensive-normalization"])
+    sim = read_csv_rows(d / "similarity_to_adipocytes.csv")
+    n_sampled = sum(min(10, n) for n in ANALYSIS_SPLITS.values())  # --n-samples 10 a split
+    if comp["n_rows"] != 4 * n_sampled or len(sim) != comp["n_rows"] or not all(
+            math.isfinite(float(r["overall_similarity"])) for r in sim) or \
+            len(read_csv_rows(d / "adipocyte_reference_metrics.csv")) != ANALYSIS_ADIPO or \
+            not (d / "comprehensive_normalization_analysis.png").exists():
+        raise AssertionError(f"analyze-tiles --comprehensive-normalization: {comp}")
+    print(f"analyze_tiles modes: --compare-preprocessing (10 tiles x {len(analysis.VARIANTS)} "
+          f"variants), --contrast-groups {groups['groups']}, --compare-normalization all "
+          f"({len(ANALYSIS_MODES)} modes x {2 * len(ANALYSIS_SPLITS)} samples), "
+          f"--comprehensive-normalization --adipocyte-dir ({comp['n_rows']} rows, similarity to "
+          f"{ANALYSIS_ADIPO} references): artifacts complete")
+
+    # one tile's quality metrics, card vs CPU
+    tile = cv2.imread(str(sorted((dirs["dataset"] / "train" / "images").glob("*.jpg"))[0]),
+                      cv2.IMREAD_GRAYSCALE).astype(np.float32)
+    iqm_gap = metric_gaps(analysis.image_quality_metrics(tile, dev),
+                          analysis.image_quality_metrics(tile, "cpu"),
+                          local=("avg_local_contrast", "local_contrast_variation"))
+
+    # morphology (host cv2) and the pipeline visualizer at its defaults
+    printed, walls["analyze-tiles --morphology"], _ = run_cli(
+        ["analyze-tiles", "--tiles-dir", str(dirs["masks"]), "--output-dir",
+         str(out / "morphology"), "--morphology", *dev_args])
+    morph = json.loads((out / "morphology" / "morphology_analysis.json").read_text())
+    if json.loads(printed) != morph["optimized_parameters"] or \
+            morph["cell_statistics"]["total_cells_analyzed"] < ANALYSIS_MASKS:
+        raise AssertionError(f"analyze-tiles --morphology: {morph['cell_statistics']}")
+    printed, walls["visualize-preprocessing"], peak = run_cli(
+        ["visualize-preprocessing", "--tiles-dir", str(dirs["dataset"] / "train" / "images"),
+         "--output-dir", str(out / "vis"), *dev_args])
+    vis = json.loads(printed)
+    for version in ("color", "grayscale"):
+        if image_size(Path(vis[version])) != ((4 * 7 + 3) * 150, 20 * 150) or peak <= 0:
+            raise AssertionError(f"visualize-preprocessing {version}: {vis}, peak {peak}")
+    if any(launches().values()):
+        raise AssertionError(f"the stain and analysis tools launched a kernel: {launches()}")
+    print(f"analysis: one tile's quality metrics card vs CPU, largest relative gap "
+          f"{max(iqm_gap.values()):.2e} ({max(iqm_gap, key=iqm_gap.get)}); --morphology "
+          f"{morph['cell_statistics']['total_cells_analyzed']} cells -> "
+          f"{json.dumps(morph['optimized_parameters']['morphological'])}; visualize-preprocessing "
+          f"at its defaults (7 tiles; z-score stats {json.dumps(vis['stats'])}); no kernel "
+          f"launched; every device tool allocated on the card")
+    rounded = {k: round(v, 3) for k, v in walls.items()}
+    print(f"timing stain and analysis tools (host clock, s): {json.dumps(rounded)} [{smi}]")
+    print(f"timing analyze-tiles --census over {n_tiles} tiles: "
+          f"{walls['analyze-tiles --census']:.3f} s wall under the profiler, device busy "
+          f"{census_idle[0]:.3f} s ({100 * census_idle[1]:.1f}% idle); phase 9f "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    shutil.rmtree(root)
+    return {"stain_analysis": launches()}
+
+
 def phase_cls_timing(dev, g, cls: dict, smi: str) -> dict:
     """The classifier's train step in each phase, with and without
     ``augment_low_res``, and the prep alone, by CUDA events over distinct
@@ -2944,6 +3251,8 @@ def main() -> int:
         paths |= phase_builds(dev, Path(tmp), run, cls["run"], smi)
         torch.cuda.empty_cache()
         paths |= phase_wsi_tools(dev, Path(tmp), smi)
+        torch.cuda.empty_cache()
+        paths |= phase_stain_analysis(dev, Path(tmp), smi)
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

@@ -16,7 +16,8 @@ PORTED = ("segment", "classify", "evaluate", "evaluate-checkpoints", "eval-class
           "tile-classification-eval", "visualize-metrics", "pipeline", "train-unet",
           "train-classifier", "build-dataset", "build-test-dataset", "build-class-dataset",
           "build-test-class-dataset", "run-pipeline", "reconstruct", "classification-overlay",
-          "chunk-wsi", "preprocess-ecm", "scale-ecm", "compare-modalities", "tif2jpg")
+          "chunk-wsi", "preprocess-ecm", "scale-ecm", "compare-modalities", "tif2jpg",
+          "select-stain-reference", "validate-stain", "analyze-tiles", "visualize-preprocessing")
 # the host-only subcommands: no --device
 HOST_ONLY = ("visualize-metrics", "classification-overlay", "scale-ecm", "tif2jpg")
 # Not on the card's machine (numpy, scipy, einops and cv2 are); the JAX package

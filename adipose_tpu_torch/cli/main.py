@@ -8,11 +8,12 @@ the four dataset builds (``build-dataset``, ``build-test-dataset``,
 ``reconstruct``, ``classification-overlay`` and the WSI preparation tools
 (``chunk-wsi``, ``preprocess-ecm``, ``scale-ecm``, ``compare-modalities``,
 ``tif2jpg``) and the stain and analysis tools (``select-stain-reference``,
-``validate-stain``, ``analyze-tiles``, ``visualize-preprocessing``) are those
-subcommands of ``adipose`` (``adipose_tpu/cli/main.py``)
-on a torch device, with the same flags plus ``--device`` where device work
-runs. They read
-and write ``params.npz`` weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
+``validate-stain``, ``analyze-tiles``, ``visualize-preprocessing``) and
+serving (``export``, ``import-weights``; ``segment --bundle`` and ``classify
+--bundle`` serve an export bundle) are those subcommands of ``adipose``
+(``adipose_tpu/cli/main.py``) on a torch device, with the same flags plus
+``--device`` where device work runs. They read and write ``params.npz``
+weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("segment", help="folder inference: masks + prob maps")
     s.add_argument("--weights", default=None)
     s.add_argument("--bundle", default=None,
-                   help="StableHLO export bundle (not ported yet)")
+                   help="export bundle (adipose-torch export): its program for --device, "
+                        "the normalization baked in")
     s.add_argument("--input-dir", "--images-dir", dest="input_dir", required=True,
                    help="tile folder (reference name: --images-dir)")
     s.add_argument("--output-dir", required=True)
@@ -92,7 +94,31 @@ def build_parser() -> argparse.ArgumentParser:
     _add_wsi_tools(sub)
     _add_wsi_prep(sub)
     _add_analysis(sub)
+    _add_serving(sub)
     return parser
+
+
+def _add_serving(sub) -> None:
+    """``export`` and ``import-weights``: every flag name and default of the
+    ``adipose`` subcommands; ``export`` adds ``--device``, ``import-weights``
+    runs on the host."""
+    ex = sub.add_parser("export", help="export a model for serving (torch.export)")
+    ex.add_argument("--weights", required=True)
+    ex.add_argument("--model", choices=["unet", "classifier"], default="unet")
+    ex.add_argument("--output", required=True)
+    ex.add_argument("--batch-size", type=int, default=1)
+    ex.add_argument("--tile-size", type=int, default=1024)
+    ex.add_argument("--platforms", nargs="+", default=["tpu", "cpu"],
+                    help="one program per device: tpu, gpu and cuda mean --device, cpu "
+                         "the CPU")
+    _add_device(ex, cmd_export)
+
+    iw = sub.add_parser("import-weights", help="TF .weights.h5 -> params.npz")
+    iw.add_argument("--h5", required=True)
+    iw.add_argument("--model", choices=["unet", "classifier"], default="unet")
+    iw.add_argument("--output", required=True)
+    iw.add_argument("--use-deep-supervision", action="store_true")
+    iw.set_defaults(func=cmd_import_weights)
 
 
 def _add_device(p, func) -> None:
@@ -679,7 +705,9 @@ def _add_classifier_inference(sub) -> None:
 
     ci = sub.add_parser("classify", help="folder classification -> CSV")
     ci.add_argument("--weights", default=None)
-    ci.add_argument("--bundle", default=None, help="export bundle (not ported yet)")
+    ci.add_argument("--bundle", default=None,
+                    help="export bundle (adipose-torch export): its program for --device "
+                         "after the preprocessing; its batch overrides --batch-size")
     ci.add_argument("--input-dir", required=True)
     ci.add_argument("--output-dir", default="classification_outputs",
                     help="dir for predictions_{mode}{_tta}.csv "
@@ -933,10 +961,15 @@ def cmd_segment(args) -> None:
     from adipose_tpu_torch.eval.visualize import color_overlay
 
     if args.bundle:
-        raise SystemExit("segment --bundle is not ported yet")
-    if not args.weights:
-        raise SystemExit("segment requires --weights")
-    predict, params, _, _ = _load_segmenter(args.weights, device=args.device)
+        from adipose_tpu_torch.serving.export import load_exported
+
+        call, params, _manifest = load_exported(args.bundle, args.device)
+        # normalization baked in; the program takes float32 gray
+        predict = lambda p, tiles: call(p, tiles.to(torch.float32))  # noqa: E731
+    elif args.weights:
+        predict, params, _, _ = _load_segmenter(args.weights, device=args.device)
+    else:
+        raise SystemExit("segment requires --weights or --bundle")
     if args.use_tta:
         from adipose_tpu_torch.eval.tta import make_tta_predict
         from adipose_tpu_torch.ops.d4 import MODE_IDS
@@ -1272,13 +1305,36 @@ def cmd_classify(args) -> list[dict]:
     from adipose_tpu_torch.eval.evaluator import read_image_gray
     from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
 
-    if args.bundle:
-        raise SystemExit("classify --bundle is not ported yet")
-    if not args.weights:
-        raise SystemExit("classify requires --weights")
     # the reference inference CLI's preprocessing (classification_inference.py:
     # 288-320): no percentile stretch unless asked
-    predict, state = _load_classifier(args.weights, args.device, args.percentile_norm)
+    if args.bundle:
+        # the exported classifier takes inception-preprocessed (B, 299, 299, 3)
+        from adipose_tpu_torch.ops.d4 import CLASSIFIER_MODE_IDS
+        from adipose_tpu_torch.serving.export import load_exported, read_manifest
+        from adipose_tpu_torch.train.trainer_classifier import make_inception_preprocess
+
+        mb = int(read_manifest(args.bundle).get("batch_size", args.batch_size))
+        if mb != args.batch_size:
+            print(f"bundle exported at batch {mb}; overriding --batch-size")
+            args.batch_size = mb
+        if args.use_tta:
+            # the views fold into the fixed exported batch: chunk so that
+            # views * chunk == the manifest's batch
+            views = len(CLASSIFIER_MODE_IDS[args.tta_mode])
+            if args.batch_size % views:
+                raise SystemExit(f"--use-tta with --bundle needs the exported batch "
+                                 f"({args.batch_size}) divisible by {views} TTA views")
+            args.batch_size //= views
+        call, state, _manifest = load_exported(args.bundle, args.device)
+        pre = make_inception_preprocess(args.percentile_norm)
+
+        def predict(variables, images):
+            with torch.inference_mode():
+                return call(variables, pre(images))
+    elif args.weights:
+        predict, state = _load_classifier(args.weights, args.device, args.percentile_norm)
+    else:
+        raise SystemExit("classify requires --weights or --bundle")
     if args.use_tta:
         predict = make_classifier_tta_predict(predict, args.tta_mode)
     in_dir = Path(args.input_dir)
@@ -1345,6 +1401,38 @@ def cmd_classify(args) -> list[dict]:
     print(f"total {len(rows)} | adipose {n_pos} ({100 * n_pos / len(rows):.1f}%) | "
           f"mean prob {probs_all.mean():.4f}")
     return rows
+
+
+def cmd_export(args) -> Path:
+    from adipose_tpu_torch.serving.export import export_model
+
+    path = export_model(args.weights, args.model, args.output, batch_size=args.batch_size,
+                        tile_size=args.tile_size, platforms=tuple(args.platforms),
+                        device=args.device)
+    print(f"exported {args.model} → {path}")
+    return path
+
+
+def cmd_import_weights(args) -> Path:
+    """A TF ``.h5`` onto the full-size model's init (the port's seeded init
+    for the leaves the file lacks), written as ``<output>/params.npz``."""
+    from adipose_tpu_torch.core.seeding import generator_for
+    from adipose_tpu_torch.models.convert import torch_inception_to_flax, torch_unet_to_flax
+    from adipose_tpu_torch.models.tf_import import import_inception_weights, import_unet_weights
+
+    if args.model == "unet":
+        model = DilatedUNet(use_deep_supervision=args.use_deep_supervision,
+                            compute_dtype=torch.float32)
+        model.init_params(generator_for("unet.init", 0))
+        variables = import_unet_weights(args.h5, torch_unet_to_flax(model.state_dict()))
+    else:
+        model = InceptionV3Classifier(compute_dtype=torch.float32)
+        model.init_flax(generator_for("classifier.init", 0))
+        variables = import_inception_weights(args.h5, torch_inception_to_flax(model.state_dict()))
+    out = Path(args.output)
+    ckpt.save_params(out.parent, out.name, variables)
+    print(f"imported {args.h5} → {args.output}")
+    return out
 
 
 def _seed(args) -> int:

@@ -41,17 +41,17 @@ def oihw_to_hwio(weight: np.ndarray) -> np.ndarray:
     return weight.transpose(2, 3, 1, 0)
 
 
-def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+def flatten_tree(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     flat = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            flat.update(_flatten(v, prefix + (k,)))
+            flat.update(flatten_tree(v, prefix + (k,)))
         else:
             flat[prefix + (k,)] = v
     return flat
 
 
-def _unflatten(flat: dict[tuple, np.ndarray]) -> dict:
+def unflatten_tree(flat: dict[tuple, np.ndarray]) -> dict:
     tree: dict = {}
     for path, v in flat.items():
         node = tree
@@ -65,7 +65,7 @@ def flax_unet_to_torch(params: dict) -> dict[str, torch.Tensor]:
     """Flax U-Net params (with or without the top ``"params"`` level) ->
     a :class:`~adipose_tpu_torch.models.unet.DilatedUNet` state dict."""
     state = {}
-    for path, arr in _flatten(params).items():
+    for path, arr in flatten_tree(params).items():
         layer, leaf = path[-2], path[-1]
         a = np.asarray(arr, dtype=np.float32)
         if leaf == "kernel":
@@ -91,7 +91,7 @@ def torch_unet_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
             flat[scope + (layer, "bias")] = np.array(a)
         else:
             raise ValueError(f"unexpected U-Net state dict key {key}")
-    return _unflatten(flat)
+    return unflatten_tree(flat)
 
 
 def flax_inception_to_torch(variables: dict) -> dict[str, torch.Tensor]:
@@ -100,7 +100,7 @@ def flax_inception_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     state dict (``backbone.cbn_<i>.conv.weight``, ``...bn.{bias,mean,var}``,
     ``adipose_score.{weight,bias}``)."""
     state = {}
-    for path, arr in _flatten(variables).items():
+    for path, arr in flatten_tree(variables).items():
         if path[0] not in ("params", "batch_stats"):
             raise ValueError(f"unexpected classifier variable {'/'.join(path)}")
         a = np.asarray(arr, dtype=np.float32)
@@ -124,17 +124,17 @@ def torch_inception_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
             leaf = "kernel"
         collection = "batch_stats" if leaf in ("mean", "var") else "params"
         flat[(collection, *scope, leaf)] = np.array(a, order="C")
-    return _unflatten(flat)
+    return unflatten_tree(flat)
 
 
 def save_flax_npz(tree: dict, path: str | Path) -> Path:
     """Write a param tree as one ``.npz`` with ``/``-joined keys."""
     path = Path(path)
-    np.savez(path, **{"/".join(k): np.asarray(v) for k, v in _flatten(tree).items()})
+    np.savez(path, **{"/".join(k): np.asarray(v) for k, v in flatten_tree(tree).items()})
     return path
 
 
 def load_flax_npz(path: str | Path) -> dict:
     """Read a param tree written by :func:`save_flax_npz`."""
     with np.load(path) as z:
-        return _unflatten({tuple(k.split("/")): z[k] for k in z.files})
+        return unflatten_tree({tuple(k.split("/")): z[k] for k in z.files})

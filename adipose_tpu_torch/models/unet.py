@@ -212,7 +212,10 @@ class DilatedUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         h, w = x.shape[-2:]
-        up1, up2, up3 = self.trunk(x, generator)
+        # The head kernel reads channels-last. cuDNN returns that layout, so
+        # this is a no-op when run; a torch.export trace records the layout
+        # the meta functions guess (row-major) unless it is stated here.
+        up1, up2, up3 = (t.contiguous(memory_format=_CL) for t in self.trunk(x, generator))
         if self.fast_head:
             main = diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1.dtype))
         else:

@@ -7,8 +7,10 @@ five operations per input byte). Its design reads each input byte once and
 writes the normalized tile once, directly in the model's input dtype; the
 source's header says how.
 
-On a CPU tensor the wrapper runs the plain version. On a CUDA tensor it
-launches the kernel or raises: there is no fallback.
+The wrapper calls the custom op ``adipose::zscore``, whose CPU kernel is the
+plain version and whose CUDA kernel launches the CUDA kernel or raises: there
+is no fallback, and no other device has a kernel. Its fake implementation
+gives the outputs' shapes, so ``torch.export`` keeps the op as one node.
 """
 
 from __future__ import annotations
@@ -54,22 +56,9 @@ def fused_zscore_normalize_plain(tiles: torch.Tensor, mean: float, std: float,
     return normalized, stats
 
 
-def fused_zscore_normalize(tiles: torch.Tensor, mean: float, std: float,
-                           white_threshold: float = WHITE_THRESHOLD,
-                           out_dtype: torch.dtype = torch.float32):
-    """One pass: per-tile stats plus the dataset z-score ``(x-mean)/(std+1e-10)``.
-
-    Args:
-      tiles: (B, H, W) uint8 or float32 tiles, contiguous.
-      mean, std: the dataset statistics (``normalization_stats.json``).
-      out_dtype: float32 or bfloat16, the dtype of the normalized output.
-
-    Returns:
-      (normalized (B, 1, H, W) ``out_dtype``, stats (B, 3) float32
-      ``[mean, std, white_ratio]`` of each tile).
-    """
-    if tiles.device.type == "cpu":
-        return fused_zscore_normalize_plain(tiles, mean, std, white_threshold, out_dtype)
+def _check(tiles: torch.Tensor, out_dtype: torch.dtype) -> None:
+    """What the kernel takes; the fake implementation checks it too, so a
+    trace for the card fails where the kernel would."""
     if tiles.dtype not in _IN_DTYPES:
         raise TypeError(f"fused_zscore_normalize: tiles dtype {tiles.dtype} not in {_IN_DTYPES}")
     if out_dtype not in _OUT_DTYPES:
@@ -80,6 +69,12 @@ def fused_zscore_normalize(tiles: torch.Tensor, mean: float, std: float,
             f"got shape {tuple(tiles.shape)} strides {tiles.stride()}")
     if not tiles.is_cuda:
         raise ValueError(f"fused_zscore_normalize: tiles on {tiles.device}, not CPU or CUDA")
+
+
+def _zscore_cuda(tiles: torch.Tensor, mean: float, std: float, white_threshold: float,
+                 out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel of ``adipose::zscore``: one launch, counted."""
+    _check(tiles, out_dtype)
     b, h, w = tiles.shape
     mean_f, denom_f = _scalars(mean, std)
     dev = tiles.device
@@ -95,6 +90,46 @@ def fused_zscore_normalize(tiles: torch.Tensor, mean: float, std: float,
     build.check(code, "fused_zscore_normalize")
     fused_zscore_normalize.launches += 1
     return out, stats
+
+
+# The op: the plain version on the CPU, the kernel on CUDA, no kernel on any
+# other device (the dispatcher raises there). The CPU kernel looks the plain
+# version up at call time, so a counting shim put in its place is seen.
+@torch.library.custom_op("adipose::zscore", mutates_args=(), device_types="cpu")
+def zscore_op(tiles: torch.Tensor, mean: float, std: float, white_threshold: float,
+              out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    return fused_zscore_normalize_plain(tiles, mean, std, white_threshold, out_dtype)
+
+
+zscore_op.register_kernel("cuda")(_zscore_cuda)
+
+
+@zscore_op.register_fake
+def _zscore_fake(tiles, mean, std, white_threshold, out_dtype):
+    if tiles.device.type != "cpu":
+        _check(tiles, out_dtype)
+    b, h, w = tiles.shape
+    return (tiles.new_empty((b, 1, h, w), dtype=out_dtype),
+            tiles.new_empty((b, 3), dtype=torch.float32))
+
+
+def fused_zscore_normalize(tiles: torch.Tensor, mean: float, std: float,
+                           white_threshold: float = WHITE_THRESHOLD,
+                           out_dtype: torch.dtype = torch.float32):
+    """One pass: per-tile stats plus the dataset z-score ``(x-mean)/(std+1e-10)``,
+    through the op ``adipose::zscore`` (one node in a ``torch.export`` graph).
+
+    Args:
+      tiles: (B, H, W) uint8 or float32 tiles, contiguous.
+      mean, std: the dataset statistics (``normalization_stats.json``).
+      out_dtype: float32 or bfloat16, the dtype of the normalized output.
+
+    Returns:
+      (normalized (B, 1, H, W) ``out_dtype``, stats (B, 3) float32
+      ``[mean, std, white_ratio]`` of each tile).
+    """
+    return torch.ops.adipose.zscore(tiles, float(mean), float(std), float(white_threshold),
+                                    out_dtype)
 
 
 fused_zscore_normalize.launches = 0

@@ -15,11 +15,13 @@ registers (:func:`head_bwd_plan` makes its plan, and sends shapes the period
 path does not take to a general kernel), and reduces dw and dbias through
 per-block partials in a fixed order. The source's header says more.
 
-:func:`diff_sigmoid_head` is differentiable: a ``torch.autograd.Function``
-whose forward is the head kernel and whose backward is the backward kernel.
-
-On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
-launches the kernel or raises: there is no fallback.
+:func:`diff_sigmoid_head` calls the custom op ``adipose::sigmoid_head``,
+differentiable through the backward kernel (``register_autograd``), whose
+CPU kernel is the plain version and whose CUDA kernel launches the head
+kernel or raises; no other device has a kernel. Its fake implementation
+gives the output's shape, so ``torch.export`` keeps the op as one node. On a
+CPU tensor the backward wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises. There is no fallback.
 """
 
 from __future__ import annotations
@@ -100,16 +102,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x on {x.device} and w on {w.device}, need one CUDA device")
 
 
-def diff_sigmoid_head_forward(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
-    """The head kernel alone, outside autograd; see :func:`diff_sigmoid_head`.
-    Counts its launches on ``diff_sigmoid_head.launches``."""
-    if x.device.type == "cpu":
-        return diff_sigmoid_head_plain(x, w, bias)
+def _head_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel of ``adipose::sigmoid_head``: one launch, counted."""
     _check(x, w, "diff_sigmoid_head")
     b, c, h, wd = x.shape
     dev = x.device
     w = w.contiguous()
-    bias_t = torch.as_tensor(bias, dtype=torch.float32, device=dev).reshape(())
+    bias_t = bias.to(device=dev, dtype=torch.float32).reshape(())
     out = torch.empty((b, h, wd), dtype=torch.float32, device=dev)
     index, stream = build.launch_target(dev)
     code = build.library().adipose_sigmoid_head(
@@ -118,6 +117,46 @@ def diff_sigmoid_head_forward(x: torch.Tensor, w: torch.Tensor, bias) -> torch.T
     build.check(code, "diff_sigmoid_head")
     diff_sigmoid_head.launches += 1
     return out
+
+
+# The op: the plain version on the CPU, the kernel on CUDA, no kernel on any
+# other device (the dispatcher raises there); differentiable through the
+# backward kernel B'. The CPU kernel looks the plain version up at call time,
+# so a counting shim put in its place is seen.
+@torch.library.custom_op("adipose::sigmoid_head", mutates_args=(), device_types="cpu")
+def sigmoid_head_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return diff_sigmoid_head_plain(x, w, bias)
+
+
+sigmoid_head_op.register_kernel("cuda")(_head_cuda)
+
+
+@sigmoid_head_op.register_fake
+def _head_fake(x, w, bias):
+    if x.device.type != "cpu":  # a trace for the card fails where the kernel would
+        _check(x, w, "diff_sigmoid_head")
+    b, _, h, wd = x.shape
+    return x.new_empty((b, h, wd), dtype=torch.float32)
+
+
+def _head_setup(ctx, inputs, output):
+    x, w, _ = inputs
+    ctx.save_for_backward(x, w, output)
+
+
+def _head_backward(ctx, g):
+    x, w, p = ctx.saved_tensors
+    return diff_sigmoid_head_backward(x, w, p, g.contiguous())
+
+
+sigmoid_head_op.register_autograd(_head_backward, setup_context=_head_setup)
+
+
+def diff_sigmoid_head_forward(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
+    """The head kernel alone, outside autograd; see :func:`diff_sigmoid_head`.
+    Counts its launches on ``diff_sigmoid_head.launches``."""
+    with torch.no_grad():
+        return diff_sigmoid_head(x, w, bias)
 
 
 def diff_sigmoid_head_backward(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
@@ -160,22 +199,10 @@ def diff_sigmoid_head_backward(x: torch.Tensor, w: torch.Tensor, p: torch.Tensor
     return dx, dw, dbias
 
 
-class _DiffSigmoidHead(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, bias):
-        p = diff_sigmoid_head_forward(x, w, bias)
-        ctx.save_for_backward(x, w, p)
-        return p
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w, p = ctx.saved_tensors
-        return diff_sigmoid_head_backward(x, w, p, g.contiguous())
-
-
 def diff_sigmoid_head(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
     """``sigmoid(einsum('bchw,c->bhw', x, w) + bias)`` with f32 accumulation,
-    differentiable in x, w and bias.
+    differentiable in x, w and bias, through the op ``adipose::sigmoid_head``
+    (one node in a ``torch.export`` graph).
 
     Args:
       x: (B, C, H, W) activation, bf16 or f32, ``torch.channels_last``.
@@ -186,7 +213,7 @@ def diff_sigmoid_head(x: torch.Tensor, w: torch.Tensor, bias) -> torch.Tensor:
       (B, H, W) float32 probabilities.
     """
     bias = torch.as_tensor(bias, dtype=torch.float32, device=x.device)
-    return _DiffSigmoidHead.apply(x, w, bias)
+    return torch.ops.adipose.sigmoid_head(x, w, bias)
 
 
 diff_sigmoid_head.launches = 0

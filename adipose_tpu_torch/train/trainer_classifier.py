@@ -27,8 +27,10 @@ here: the draws never depended on it.
 :func:`make_inception_preprocess` and :func:`_make_val_step` serve the WSI
 cascade's classifier gate as well (``_make_val_step(model, True, 1.0, 99.0)``).
 
-Not ported yet (each raises): more than one device, TF ``.h5`` pretrained
-weights (ROADMAP Queue 1 item 8).
+Not ported yet (it raises): more than one device. ``pretrained_weights``
+takes a TF ``.h5`` (the Keras InceptionV3 ImageNet file the reference starts
+from) through :mod:`adipose_tpu_torch.models.tf_import`, or a run's
+``params.npz``.
 """
 
 from __future__ import annotations
@@ -283,18 +285,26 @@ class ClassifierTrainer:
         # two-phase freeze schedule assumes that init.
         print("[classifier] WARNING: no --pretrained-weights given - backbone starts from "
               "RANDOM init, NOT the reference's ImageNet transfer learning "
-              "(train_adipose_classifier_v0.py:312-319).")
+              "(train_adipose_classifier_v0.py:312-319). Supply the Keras InceptionV3 "
+              "ImageNet .h5 via --pretrained-weights to reproduce the reference.")
         return variables
 
     @staticmethod
     def _load_pretrained(variables: dict[str, torch.Tensor], path: str | Path):
-        """By-name transfer with mismatch skipping (:322-353) from a run or
-        weights directory holding ``params.npz``."""
+        """By-name transfer with mismatch skipping (:322-353) from a TF
+        ``.h5`` / ``.weights.h5`` (through the importer, e.g. the Keras
+        InceptionV3 ImageNet file; a file it cannot map is reported and
+        skipped) or a run or weights directory holding ``params.npz``."""
         p = Path(path)
         if p.suffix == ".h5" or p.name.endswith(".weights.h5"):
-            raise NotImplementedError("--pretrained-weights from a TF .h5 file is not ported "
-                                      "yet (ROADMAP Queue 1 item 8); export the run's "
-                                      "params.npz instead")
+            from adipose_tpu_torch.models.tf_import import import_inception_weights
+
+            try:
+                return flax_inception_to_torch(
+                    import_inception_weights(p, torch_inception_to_flax(variables)))
+            except ValueError as e:
+                print(f"[pretrained] TF import skipped: {e}")
+                return variables
         loaded = ckpt.load_params(ckpt.resolve_weights_path(p))
         out = flax_inception_to_torch(ckpt.merge_matching(torch_inception_to_flax(variables),
                                                           loaded))

@@ -21,8 +21,9 @@ JAX package's 1-deep augment/step pipelining on one stream. A background
 thread decodes the next batches meanwhile (:func:`prefetch_batches`).
 
 Not ported yet (each raises): more than one device (``num_devices > 1``),
-spatial sharding, ``UNetConfig.remat``/``remat_level1``, TF ``.h5``
-pretrained weights; the TPU compile-OOM retry ladder has no counterpart.
+spatial sharding, ``UNetConfig.remat``/``remat_level1``; the TPU compile-OOM
+retry ladder has no counterpart. ``--pretrained-weights`` takes a TF ``.h5``
+through :mod:`adipose_tpu_torch.models.tf_import`, or a run's ``params.npz``.
 """
 
 from __future__ import annotations
@@ -212,13 +213,20 @@ class UNetTrainer:
 
     def load_pretrained(self, params: dict[str, torch.Tensor], path: str | Path):
         """By-name weight transfer with mismatch skipping
-        (``train_adipose_unet_v3.py:881-916``) from a run or weights
-        directory holding ``params.npz``; aux-head and shape-mismatched
-        entries keep their fresh init."""
+        (``train_adipose_unet_v3.py:881-916``) from a TF ``.h5`` /
+        ``.weights.h5`` (through the importer; a file it cannot map is
+        reported and the init kept) or a run or weights directory holding
+        ``params.npz``; aux-head and shape-mismatched entries keep their
+        fresh init."""
         p = Path(path)
         if p.suffix == ".h5" or p.name.endswith(".weights.h5"):
-            raise NotImplementedError("--pretrained-weights from a TF .h5 file is not ported "
-                                      "yet; export the run's params.npz instead")
+            from adipose_tpu_torch.models.tf_import import import_unet_weights
+
+            try:
+                return flax_unet_to_torch(import_unet_weights(p, torch_unet_to_flax(params)))
+            except ValueError as e:
+                print(f"[pretrained] TF import fell back to by-name merge: {e}")
+                return params
         loaded = ckpt.load_params(ckpt.resolve_weights_path(p))
         merged = ckpt.merge_matching(torch_unet_to_flax(params), loaded)
         out = flax_unet_to_torch(merged)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
 training, classifier training, classifier evaluation, dataset builds, WSI
-tools, WSI preparation tools, stain and analysis tools and conv-chain layout
-probe once on one CUDA GPU and check its kernels.
+tools, WSI preparation tools, stain and analysis tools, serving export and
+TF weight import, and conv-chain layout probe once on one CUDA GPU and check
+its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -134,6 +135,19 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      candidate's metrics, one tile's quality metrics and the census verdicts
      on the card against the CPU; timings: each tool's wall time, the device
      idle share over one census run
+  9g. serving  through cli.main.main: ``export`` of the slice's init_nb=44
+     run at batch 16 x 1024^2 and of 9a's InceptionV3 run at batch 32, at
+     the default platforms (a CUDA and a CPU program each; the U-Net's CUDA
+     program holds one adipose::zscore and one adipose::sigmoid_head node,
+     the classifier's none); ``segment --bundle`` over 32 seeded tiles at
+     batch 16 (A 2, B 2) and with ``--use-tta --tta-mode basic`` (A 8, B 8,
+     D 16), each byte-equal to ``segment --weights``; ``classify --bundle
+     --percentile-norm --use-tta --tta-mode full`` over 9b's 128 test tiles
+     (P and D once a call) against ``classify --weights`` within 1e-6; the
+     bundle's call against the eager predict (A 1 and B 1 a call; values;
+     CUDA-event time in turns) for both models; ``import-weights`` of a
+     seeded full-width U-Net and InceptionV3 TF file, bit-equal, where h5py
+     is installed (else one line says so); export and load wall times
   9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
@@ -197,7 +211,7 @@ from adipose_tpu_torch.data.loader import ClassificationDataset
 from adipose_tpu_torch.models.convert import flax_inception_to_torch
 from adipose_tpu_torch.models.inception import backbone_param_mask, frozen_conv_boundary
 from adipose_tpu_torch.ops.metrics import roc_auc
-from adipose_tpu_torch.models.convert import load_flax_npz
+from adipose_tpu_torch.models.convert import flatten_tree, load_flax_npz
 from adipose_tpu_torch.ops.normalize import TRAIN_MEAN_DEFAULT, TRAIN_STD_DEFAULT
 from adipose_tpu_torch.scripts import exp_layout_probe as probe
 from adipose_tpu_torch.train import checkpoint as ckpt
@@ -3001,6 +3015,276 @@ def phase_stain_analysis(dev, tmp: Path, smi: str) -> dict:
     return {"stain_analysis": launches()}
 
 
+# ---- serving export and TF weights ---------------------------------------------
+
+SERVING_TILES = 32  # 1024^2 tiles: two bundle calls at the smoke's batch of 16
+SERVING_OPS = ("adipose.zscore.default", "adipose.sigmoid_head.default")
+
+
+def program_ops(program: Path) -> dict[str, int]:
+    """The kernel-op nodes of an exported program's graph, by target."""
+    graph = torch.export.load(program).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    return {op: targets.count(op) for op in SERVING_OPS}
+
+
+def busy_ms(fn, inputs: list, iters: int) -> tuple[float, float]:
+    """(wall ms, device-busy ms) per call of ``fn`` over ``iters`` calls
+    cycling ``inputs`` under torch.profiler, after one warm-up call per
+    input: where busy is well below wall, the host bounds the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e3
+    return wall * 1e3 / iters, busy / iters
+
+
+def files_differing(a: Path, b: Path) -> list[str]:
+    """The files of two output trees that differ in name or bytes."""
+    names = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    if names != sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file()):
+        return ["<the file lists>"]
+    return [str(n) for n in names if (a / n).read_bytes() != (b / n).read_bytes()]
+
+
+def seeded_h5_files(tmp: Path) -> dict[str, tuple[Path, dict]]:
+    """A seeded full-width U-Net file in the legacy by-name layout and an
+    InceptionV3 classifier file in the generic layout (group k holds conv
+    INCEPTION_TOPO_PERM[k]): model -> (the file, its arrays by Flax-layout
+    path)."""
+    import h5py
+
+    from adipose_tpu_torch.models.tf_import import INCEPTION_TOPO_PERM
+
+    rng = np.random.default_rng(SEED + 9)
+
+    def draws(to_flax, model: torch.nn.Module) -> dict:
+        """Seeded arrays in the shapes of the model's tree; BN variances
+        positive."""
+        tree = to_flax({k: torch.zeros(v.shape) for k, v in model.state_dict().items()})
+        return {path: (np.abs(rng.standard_normal(a.shape, dtype=np.float32)) + np.float32(0.5)
+                       if path[-1] == "var" else rng.standard_normal(a.shape, dtype=np.float32))
+                for path, a in flatten_tree(tree).items()}
+
+    unet = draws(torch_unet_to_flax, DilatedUNet(device="meta"))  # the CLI's width
+    with h5py.File(tmp / "unet.h5", "w") as f:
+        for path, arr in unet.items():
+            f.create_dataset(f"model_weights/{path[-2]}/{path[-2]}/{path[-1]}:0", data=arr)
+    cls = draws(torch_inception_to_flax, InceptionV3Classifier(device="meta"))
+    with h5py.File(tmp / "inception.weights.h5", "w") as f:
+        for k, i in enumerate(INCEPTION_TOPO_PERM):
+            suffix, scope = ("" if k == 0 else f"_{k}"), ("backbone", f"cbn_{i}")
+            f.create_dataset(f"layers/conv2d{suffix}/vars/0",
+                             data=cls[("params", *scope, "conv", "kernel")])
+            for j, (coll, leaf) in enumerate((("params", "bias"), ("batch_stats", "mean"),
+                                              ("batch_stats", "var"))):
+                f.create_dataset(f"layers/batch_normalization{suffix}/vars/{j}",
+                                 data=cls[(coll, *scope, "bn", leaf)])
+        for j, leaf in enumerate(("kernel", "bias")):
+            f.create_dataset(f"layers/dense/vars/{j}", data=cls[("params", "adipose_score", leaf)])
+    return {"unet": (tmp / "unet.h5", unet), "classifier": (tmp / "inception.weights.h5", cls)}
+
+
+def phase_serving(dev, tmp: Path, seg_run: Path, cls_run: Path, smi: str) -> dict:
+    """``adipose-torch export`` of the slice's U-Net run (batch 16) and the
+    classifier run (classify's batch) at the default platforms, through
+    cli.main.main; the kernel-op nodes of each CUDA program; ``segment
+    --bundle`` with and without basic TTA and ``classify --bundle
+    --percentile-norm --use-tta --tta-mode full`` against the same calls
+    with ``--weights`` (launch counts, equal outputs); the bundle's
+    probabilities against the eager predict's; ``import-weights`` of seeded
+    full-width files where h5py is installed; timings."""
+    import importlib.util
+
+    from adipose_tpu_torch.eval.evaluator import read_image_gray
+    from adipose_tpu_torch.ops.d4 import CLASSIFIER_MODE_IDS
+    from adipose_tpu_torch.serving.export import load_exported
+
+    paths: dict[str, dict[str, int]] = {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        bundles, export_s = {}, {}
+        for model, run, batch in (("unet", seg_run, BATCH), ("classifier", cls_run, CLASSIFY_BATCH)):
+            bundles[model] = tmp / f"bundle_{model}"
+            out, export_s[model], _ = run_cli(["export", "--weights", str(run), "--model", model,
+                                               "--output", str(bundles[model]),
+                                               "--batch-size", str(batch), "--tile-size",
+                                               str(SIZE), "--device", str(dev)])
+            manifest = json.loads((bundles[model] / "manifest.json").read_text())
+            programs = {dev.type: f"model.{dev.type}.pt2", "cpu": "model.cpu.pt2"}
+            missing = [f for f in ("params/params.npz", *programs.values())
+                       if not (bundles[model] / f).exists()]
+            if missing or manifest["programs"] != programs or \
+                    manifest["batch_size"] != batch or "exported" not in out:
+                raise AssertionError(f"export {model}: missing {missing}, manifest {manifest}")
+        ops = program_ops(bundles["unet"] / f"model.{dev.type}.pt2")
+        cls_ops = program_ops(bundles["classifier"] / f"model.{dev.type}.pt2")
+        if ops != dict.fromkeys(SERVING_OPS, 1) or any(cls_ops.values()):
+            raise AssertionError(f"CUDA programs' kernel ops: U-Net {ops}, classifier {cls_ops}")
+        sizes = {m: sum(p.stat().st_size for p in b.rglob("*") if p.is_file()) / 1e6
+                 for m, b in bundles.items()}
+        print(f"serving: adipose-torch export --platforms tpu cpu (the defaults) of the "
+              f"init_nb={INIT_NB} U-Net at batch {BATCH} x {SIZE}^2 and of the InceptionV3 at "
+              f"batch {CLASSIFY_BATCH}: model.cuda.pt2 + model.cpu.pt2 each; the U-Net's CUDA "
+              f"program holds {ops}, the classifier's none; wall {export_s['unet']:.2f} s and "
+              f"{export_s['classifier']:.2f} s, bundles {sizes['unet']:.1f} MB and "
+              f"{sizes['classifier']:.1f} MB [{smi}]")
+
+        # segment --bundle against segment --weights on the same tiles
+        tiles = tmp / "serving_tiles"
+        tiles.mkdir()
+        rng = np.random.default_rng(SEED + 8)
+        imgs = [training_tile(rng)[0] for _ in range(SERVING_TILES)]
+        thread_map(lambda i: cv2.imwrite(str(tiles / f"tile{i:02d}.png"), imgs[i]),
+                   list(range(SERVING_TILES)))
+        seg_flags = ["--input-dir", str(tiles), "--batch-size", str(BATCH), "--save-probability",
+                     "--save-overlays", "--device", str(dev)]
+        views = len(MODE_IDS["basic"])
+        calls = SERVING_TILES // BATCH
+        for name, tta, want in (
+                ("serving", [], tta_counts(calls) | {"d4_transform_batch": 0}),
+                ("serving_tta", ["--use-tta", "--tta-mode", "basic"],
+                 tta_counts(calls * views))):
+            reset_launches()
+            _, wall, _ = run_cli(["segment", "--bundle", str(bundles["unet"]), "--output-dir",
+                                  str(tmp / name), *seg_flags, *tta])
+            paths[name] = launches()
+            if paths[name] != want:
+                raise AssertionError(f"segment --bundle {tta}: launches {paths[name]}, want {want}")
+            run_cli(["segment", "--weights", str(seg_run), "--output-dir",
+                     str(tmp / f"{name}_weights"), *seg_flags, *tta])
+            differ = files_differing(tmp / name, tmp / f"{name}_weights")
+            if differ:
+                raise AssertionError(f"segment --bundle {tta} vs --weights: {differ[:5]} differ")
+            print(f"{name}: adipose-torch segment --bundle {' '.join(tta)} over {SERVING_TILES} "
+                  f"tiles at --batch-size {BATCH}: launches {paths[name]}; masks, probability "
+                  f"maps and overlays byte-equal to segment --weights'; {wall:.2f} s incl. the "
+                  f"bundle's load [{smi}]")
+
+        # the bundle's probabilities and time against the eager predict's
+        t0 = time.perf_counter()
+        call, bparams, _ = load_exported(bundles["unet"], dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        predict, params, _, _ = _load_segmenter(seg_run, device=dev)
+        batches = [torch.from_numpy(np.stack([read_image_gray(str(p)) for p in
+                                              sorted(tiles.iterdir())[i:i + BATCH]])).to(dev)
+                   for i in range(0, SERVING_TILES, BATCH)]
+        reset_launches()
+        got = call(bparams, batches[0])
+        counted = launches()
+        want = predict(params, batches[0])
+        err = (got - want).abs().max().item()
+        if counted["fused_zscore_normalize"] != 1 or counted["diff_sigmoid_head"] != 1 or \
+                not err <= SLICE_ATOL:
+            raise AssertionError(f"bundle call: launches {counted}; vs eager max abs err {err}")
+        eager_fn, bundle_fn = lambda t: predict(params, t), lambda t: call(bparams, t)
+        eager_ms, bundle_ms = in_turns(eager_fn, bundle_fn, batches, 6)[::-1]
+        busy = {k: busy_ms(fn, batches, 4) for k, fn in (("bundle", bundle_fn),
+                                                         ("eager", eager_fn))}
+        print(f"serving predict: the bundle's call on {BATCH} x {SIZE}^2 float32 tiles launches "
+              f"A 1 and B 1; vs the eager predict (_load_segmenter) "
+              f"{'bit-equal' if err == 0 else f'max abs err {err:.3g}'} (bound {SLICE_ATOL}); "
+              f"load_exported {load_s:.3f} s host clock; by CUDA events in turns (eager, bundle, "
+              f"bundle, eager) bundle {bundle_ms:.3f} ms, eager {eager_ms:.3f} ms per batch = "
+              f"{bundle_ms / eager_ms:.4f} x; under the profiler (wall, device busy) ms per "
+              f"call: {json.dumps({k: [round(v, 3) for v in b] for k, b in busy.items()})} "
+              f"[{smi}]")
+        del call, bparams, predict, params, batches, got, want
+        torch.cuda.empty_cache()
+
+        # classify --bundle (P and D before the program) against --weights
+        data = tmp / "cls_eval" / "test"
+        n_tiles = sum(1 for _ in data.rglob("*.jpg"))
+        cls_views = len(CLASSIFIER_MODE_IDS["full"])
+        chunk = CLASSIFY_BATCH // cls_views
+        cl_flags = ["--input-dir", str(data), "--percentile-norm", "--use-tta", "--tta-mode",
+                    "full", "--device", str(dev)]
+        reset_launches()
+        _, cl_wall, _ = run_cli(["classify", "--bundle", str(bundles["classifier"]),
+                                 "--output-dir", str(tmp / "serving_classify"), *cl_flags])
+        paths["serving_classify"] = launches()
+        want = cls_predict_counts(math.ceil(n_tiles / chunk))
+        if paths["serving_classify"] != want:
+            raise AssertionError(f"classify --bundle launches {paths['serving_classify']}, "
+                                 f"want {want}")
+        run_cli(["classify", "--weights", str(cls_run), "--batch-size", str(chunk),
+                 "--output-dir", str(tmp / "serving_classify_weights"), *cl_flags])
+        rows, rows_w = (read_csv_rows(tmp / d / "predictions_grayscale_tta.csv")
+                        for d in ("serving_classify", "serving_classify_weights"))
+        cl_err = max(abs(float(a["adipose_probability"]) - float(b["adipose_probability"]))
+                     for a, b in zip(rows, rows_w))
+        if len(rows) != n_tiles or [r["image_path"] for r in rows] != \
+                [r["image_path"] for r in rows_w] or not cl_err <= CLS_EVAL_PROB_ATOL:
+            raise AssertionError(f"classify --bundle vs --weights: {len(rows)} rows, max abs "
+                                 f"err {cl_err}")
+        print(f"serving_classify: adipose-torch classify --bundle --percentile-norm --use-tta "
+              f"--tta-mode full over {n_tiles} tiles ({chunk} tiles = {CLASSIFY_BATCH} views a "
+              f"call): launches {paths['serving_classify']}; vs classify --weights at "
+              f"--batch-size {chunk} max abs err {cl_err:.3g} (bound {CLS_EVAL_PROB_ATOL}); "
+              f"{cl_wall:.2f} s incl. the bundle's load [{smi}]")
+
+        t0 = time.perf_counter()
+        call, cparams, _ = load_exported(bundles["classifier"], dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        eager = InceptionV3Classifier(device="meta").eval()
+        images = [torch.rand((CLASSIFY_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(SEED + i)) * 2 - 1
+                  for i in range(3)]
+
+        def eager_call(x):
+            with torch.inference_mode():
+                return torch.func.functional_call(eager, cparams, (x,), strict=True)
+
+        bundle_call = lambda x: call(cparams, x)  # noqa: E731
+        c_err = (bundle_call(images[0]) - eager_call(images[0])).abs().max().item()
+        eager_ms, bundle_ms = in_turns(eager_call, bundle_call, images, 6)[::-1]
+        busy = {k: busy_ms(fn, images, 6) for k, fn in (("bundle", bundle_call),
+                                                        ("eager", eager_call))}
+        if not c_err <= CLS_EVAL_PROB_ATOL:
+            raise AssertionError(f"classifier bundle vs eager: max abs err {c_err}")
+        print(f"serving classifier predict: the bundle's call on {CLASSIFY_BATCH} x "
+              f"{INCEPTION_SIZE}^2 x 3 vs the eager InceptionV3 "
+              f"{'bit-equal' if c_err == 0 else f'max abs err {c_err:.3g}'}; load_exported "
+              f"{load_s:.3f} s host clock; by CUDA events in "
+              f"turns bundle {bundle_ms:.3f} ms, eager {eager_ms:.3f} ms per batch = "
+              f"{bundle_ms / eager_ms:.4f} x; under the profiler (wall, device busy) ms per "
+              f"call: {json.dumps({k: [round(v, 3) for v in b] for k, b in busy.items()})} "
+              f"[{smi}]")
+        del call, cparams, images
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+    # import-weights of seeded full-width TF files, where h5py is installed
+    if importlib.util.find_spec("h5py") is None:
+        print("serving import-weights: h5py is not installed on this machine; the TF weight "
+              "import is not run here")
+        return paths
+    for model, (h5, arrays) in seeded_h5_files(tmp).items():
+        out = tmp / f"imported_{model}" / "weights"
+        printed, wall, _ = run_cli(["import-weights", "--h5", str(h5), "--model", model,
+                                    "--output", str(out)])
+        flat = flatten_tree(ckpt.load_params(out))
+        differ = [p for p in arrays if not np.array_equal(flat[p], arrays[p])]
+        if set(flat) != set(arrays) or differ or "missing=0" not in printed:
+            raise AssertionError(f"import-weights {model}: {len(differ)} leaves differ; "
+                                 f"{printed[-300:]}")
+        print(f"serving import-weights {model}: {h5.name} -> params.npz, all {len(flat)} leaves "
+              f"bit-equal to the file's arrays; {printed.splitlines()[0]}; {wall:.2f} s [{smi}]")
+    return paths
+
+
 def phase_cls_timing(dev, g, cls: dict, smi: str) -> dict:
     """The classifier's train step in each phase, with and without
     ``augment_low_res``, and the prep alone, by CUDA events over distinct
@@ -3205,10 +3489,10 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
 
 
 # The path whose run gives each kernel's "launches": the newest that runs it.
-MAIN_PATH = {"fused_zscore_normalize": "cascade", "diff_sigmoid_head": "train_fast_head",
-             "percentile_normalize_u8": "train_classifier",
+MAIN_PATH = {"fused_zscore_normalize": "serving", "diff_sigmoid_head": "serving",
+             "percentile_normalize_u8": "serving_classify",
              "diff_sigmoid_head_backward": "train_fast_head",
-             "d4_transform_batch": "train_classifier", "ident_hwbc": "layout_probe"}
+             "d4_transform_batch": "serving_classify", "ident_hwbc": "layout_probe"}
 
 
 def main() -> int:
@@ -3253,6 +3537,8 @@ def main() -> int:
         paths |= phase_wsi_tools(dev, Path(tmp), smi)
         torch.cuda.empty_cache()
         paths |= phase_stain_analysis(dev, Path(tmp), smi)
+        torch.cuda.empty_cache()
+        paths |= phase_serving(dev, Path(tmp), run, cls["run"], smi)
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

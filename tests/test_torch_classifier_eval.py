@@ -550,8 +550,8 @@ def test_classifier_predicts_match_jax_in_float32(classifier_run):
 
 
 def test_classify_refuses_what_is_not_ported(classifier_run):
+    """classify without a model, with the JAX CLI's message (``--bundle`` is
+    served: tests/test_torch_export.py)."""
     run, data = classifier_run
-    with pytest.raises(SystemExit, match="not ported"):
-        torch_main(["classify", "--bundle", "b", "--input-dir", str(data), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="requires --weights"):
+    with pytest.raises(SystemExit, match="classify requires --weights or --bundle"):
         torch_main(["classify", "--input-dir", str(data), "--device", "cpu"])

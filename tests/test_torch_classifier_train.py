@@ -416,7 +416,3 @@ def test_train_classifier_cli_writes_the_artifact_contract(tmp_path):
     assert probs.shape == (4,) and torch.isfinite(probs).all()
     assert ((probs >= 0) & (probs <= 1)).all()
 
-
-def test_pretrained_h5_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tc.ClassifierTrainer._load_pretrained({}, "weights.h5")

@@ -17,9 +17,11 @@ PORTED = ("segment", "classify", "evaluate", "evaluate-checkpoints", "eval-class
           "train-classifier", "build-dataset", "build-test-dataset", "build-class-dataset",
           "build-test-class-dataset", "run-pipeline", "reconstruct", "classification-overlay",
           "chunk-wsi", "preprocess-ecm", "scale-ecm", "compare-modalities", "tif2jpg",
-          "select-stain-reference", "validate-stain", "analyze-tiles", "visualize-preprocessing")
+          "select-stain-reference", "validate-stain", "analyze-tiles", "visualize-preprocessing",
+          "export", "import-weights")
 # the host-only subcommands: no --device
-HOST_ONLY = ("visualize-metrics", "classification-overlay", "scale-ecm", "tif2jpg")
+HOST_ONLY = ("visualize-metrics", "classification-overlay", "scale-ecm", "tif2jpg",
+             "import-weights")
 # Not on the card's machine (numpy, scipy, einops and cv2 are); the JAX package
 # and JAX itself are held out by test_torch_segment.py::test_cli_imports_without_jax.
 FORBIDDEN = {"sklearn", "pandas", "matplotlib", "jax", "jaxlib", "adipose_tpu"}

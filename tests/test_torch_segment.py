@@ -157,14 +157,6 @@ def test_segment_tta_matches_jax_cli(run_and_tiles, tmp_path, monkeypatch):
         assert np.abs(pj - pt).max() <= 1
 
 
-@pytest.mark.parametrize("flag", ["--bundle=x"])
-def test_segment_refuses_what_is_not_ported(run_and_tiles, tmp_path, flag):
-    run, tiles = run_and_tiles
-    with pytest.raises(SystemExit, match="not ported yet"):
-        torch_main(["segment", "--weights", str(run), "--input-dir", str(tiles),
-                    "--output-dir", str(tmp_path), "--device", "cpu", flag])
-
-
 def test_cli_imports_without_jax():
     """The command line, the trainer, the augmentation and every other
     module of the port import without JAX or the JAX package."""

@@ -14,6 +14,9 @@ serving (``export``, ``import-weights``; ``segment --bundle`` and ``classify
 (``adipose_tpu/cli/main.py``) on a torch device, with the same flags plus
 ``--device`` where device work runs. They read and write ``params.npz``
 weights (see :mod:`adipose_tpu_torch.train.checkpoint`).
+
+``train-unet`` and ``train-classifier`` train on several devices as one
+process each over ``torch.distributed`` (see :func:`_launch_ranks`).
 """
 
 from __future__ import annotations
@@ -890,8 +893,13 @@ def _add_train_unet(sub) -> None:
     t.add_argument("--cache-limit-mb", type=int, default=4096,
                    help="RAM tile-cache budget per dataset (0 disables)")
     t.add_argument("--num-devices", type=int, default=0,
-                   help="more than one device is not ported yet")
-    t.add_argument("--shard-spatial", action="store_true", help="(not ported yet)")
+                   help="devices to train on, one process each: the largest count up to "
+                        "it that divides --batch-size (0: all visible GPUs; with --device "
+                        "cpu, that many gloo ranks on the CPU, 0 meaning one process); "
+                        "under torchrun the launcher's ranks")
+    t.add_argument("--shard-spatial", action="store_true",
+                   help="(not ported yet: spatially sharded training is the next scale-out "
+                        "slice)")
     t.add_argument("--device", default="cuda",
                    help="torch device; on 'cpu' the kernels' plain versions run")
     t.set_defaults(func=cmd_train_unet)
@@ -1051,7 +1059,56 @@ def cmd_pipeline(args) -> None:
         raise SystemExit("pipeline requires --wsi or --wsi-dir")
 
 
+def _plan_ranks(device: str, batch_size: int, num_devices: int) -> int:
+    """The JAX planner's data axis for the batch (``make_mesh_for_batch``):
+    over the visible GPUs for a CUDA device; on the CPU over
+    ``num_devices`` gloo ranks (0: one process)."""
+    from adipose_tpu_torch.parallel.mesh import make_mesh_for_batch
+
+    count = (torch.cuda.device_count() if torch.device(device).type == "cuda"
+             else max(num_devices, 1))
+    return make_mesh_for_batch(batch_size, num_devices, max(count, 1)).size
+
+
+def _launch_ranks(rank_fn, args, batch_size: int, num_devices: int):
+    """Run ``rank_fn(rank, args)`` on every rank of the plan; rank 0's result.
+
+    Under a launcher (torchrun) this process joins its group as one rank.
+    Otherwise the ranks follow :func:`_plan_ranks`: one rank runs here, more
+    are spawned (NCCL on CUDA, gloo on the CPU; a rendezvous on 127.0.0.1 at
+    a free port), and a failing rank fails the command."""
+    from adipose_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                      launched_world_size, process_index,
+                                                      spawn_ranks)
+
+    cuda = torch.device(args.device).type == "cuda"
+    if launched_world_size() > 1:
+        initialize_multihost(backend="nccl" if cuda else "gloo")
+        return rank_fn(process_index(), args)
+    n = _plan_ranks(args.device, batch_size, num_devices)
+    print(f"[ranks] {n} of batch {batch_size} ({'NCCL, one GPU each' if cuda else 'gloo'})"
+          if n > 1 else f"[ranks] 1 process for batch {batch_size}")
+    if n == 1:
+        return rank_fn(0, args)
+    return spawn_ranks(rank_fn, n, (args,), "nccl" if cuda else "gloo")
+
+
+def _rank_device(args) -> str:
+    """This rank's device: ``cuda:LOCAL_RANK`` in a process group on CUDA,
+    else ``--device``."""
+    from adipose_tpu_torch.parallel.multihost import local_rank, process_count
+
+    if torch.device(args.device).type == "cuda" and process_count() > 1:
+        torch.cuda.set_device(local_rank())
+        return f"cuda:{local_rank()}"
+    return args.device
+
+
 def cmd_train_unet(args) -> dict:
+    return _launch_ranks(_train_unet_rank, args, args.batch_size, args.num_devices)
+
+
+def _train_unet_rank(rank: int, args) -> dict:
     from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
     from adipose_tpu_torch.data.tiling import find_most_recent_build_dir
     from adipose_tpu_torch.train.trainer_unet import UNetTrainer
@@ -1082,15 +1139,21 @@ def cmd_train_unet(args) -> dict:
                           checkpoint_name=args.checkpoint_name + args.checkpoint_suffix,
                           checkpoint_root=args.checkpoint_root,
                           build_timestamp=args.run_timestamp, auto_resume=args.auto_resume,
-                          device=args.device)
-    with _profiled(args.profile_dir, "train_unet_trace.json"):
+                          device=_rank_device(args))
+    with _profiled(args.profile_dir if rank == 0 else None, "train_unet_trace.json"):
         result = trainer.train(resume_from=args.resume_from,
                                pretrained_weights=args.pretrained_weights)
-    print(json.dumps(result, indent=2))
+    if rank == 0:
+        print(json.dumps(result, indent=2))
     return result
 
 
 def cmd_train_classifier(args) -> dict:
+    # no --num-devices, as in the JAX CLI: TrainConfig.num_devices = 0, all devices
+    return _launch_ranks(_train_classifier_rank, args, args.batch_size, 0)
+
+
+def _train_classifier_rank(rank: int, args) -> dict:
     from adipose_tpu_torch.core.config import ClassifierConfig, TrainConfig
     from adipose_tpu_torch.train.trainer_classifier import ClassifierTrainer
 
@@ -1110,11 +1173,12 @@ def cmd_train_classifier(args) -> dict:
         pretrained_weights=args.pretrained_weights,
         augment_low_res=args.augment_low_res,
         prep_megabatch=args.prep_megabatch,
-        device=args.device,
+        device=_rank_device(args),
     )
-    with _profiled(args.profile_dir, "train_classifier_trace.json"):
+    with _profiled(args.profile_dir if rank == 0 else None, "train_classifier_trace.json"):
         result = trainer.train(args.warmup_epochs, args.finetune_epochs)
-    print(json.dumps(result, indent=2))
+    if rank == 0:
+        print(json.dumps(result, indent=2))
     return result
 
 

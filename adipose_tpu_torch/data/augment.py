@@ -334,11 +334,26 @@ def batched_tier(draws: dict | None, images: torch.Tensor, masks: torch.Tensor, 
     return _rest(stages, draws["stages"], images, masks)
 
 
+def draw_for_shard(generator: torch.Generator, tier: str, batch: int, height: int, width: int,
+                   shard=None) -> dict | None:
+    """``draw_tier`` for a local batch of ``batch`` rows; with a ``shard``
+    (a ``BatchShard``), drawn for its global batch and sliced to its rows,
+    so the draws do not depend on how the batch is split."""
+    if shard is None:
+        return draw_tier(generator, tier, batch, height, width)
+    draws = draw_tier(generator, tier, shard.total, height, width)
+    if draws is None:
+        return None
+    return {"tid": shard.rows(draws["tid"]),
+            "stages": [{k: shard.rows(v) for k, v in d.items()} for d in draws["stages"]]}
+
+
 def augment_batch(generator: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  tier: str = "moderate"):
-    """Draw and apply ``tier`` over a (B, H, W) float32 batch."""
+                  tier: str = "moderate", shard=None):
+    """Draw and apply ``tier`` over a (B, H, W) float32 batch (this
+    process's rows of ``shard``'s global batch, when given)."""
     b, h, w = images.shape
-    return batched_tier(draw_tier(generator, tier, b, h, w), images, masks, tier)
+    return batched_tier(draw_for_shard(generator, tier, b, h, w, shard), images, masks, tier)
 
 
 def batched_classification(draws: dict, images: torch.Tensor) -> torch.Tensor:

@@ -181,12 +181,15 @@ class TileDataset:
             self._cache.put(key, (img, mask))
         return img, mask
 
-    def epoch_batches(self, epoch: int, shuffle: bool = True) -> Iterator[tuple]:
+    def epoch_batches(self, epoch: int, shuffle: bool = True,
+                      rows: tuple[int, int] | None = None) -> Iterator[tuple]:
         """Yield (images u8 (B,H,W), masks u8 (B,H,W)) numpy batches.
 
         Epoch order derives from (seed, epoch) so any epoch is reproducible in
         isolation; short final batches repeat the last element
-        (``train_adipose_unet_v3.py:600-602``).
+        (``train_adipose_unet_v3.py:600-602``). ``rows`` = (start, size):
+        decode and yield only those rows of each batch (one process's share
+        of a global batch).
         """
         indices = np.arange(len(self.pairs))
         if shuffle:
@@ -195,6 +198,8 @@ class TileDataset:
             batch_idx = list(indices[i : i + self.batch_size])
             while len(batch_idx) < self.batch_size:
                 batch_idx.append(batch_idx[-1])
+            if rows is not None:
+                batch_idx = batch_idx[rows[0]:rows[0] + rows[1]]
             # thread-parallel decode (order-preserving); cv2 releases the GIL
             imgs, masks = zip(*self._decode_pool().map(self.load_pair, batch_idx))
             yield np.stack(imgs), np.stack(masks)
@@ -242,9 +247,11 @@ class ClassificationDataset:
         self._cache.put(idx, img)
         return img
 
-    def epoch_batches(self, epoch: int, shuffle: bool = True) -> Iterator[tuple]:
+    def epoch_batches(self, epoch: int, shuffle: bool = True,
+                      rows: tuple[int, int] | None = None) -> Iterator[tuple]:
         """The epoch's batches in the order of ``RandomState(seed + epoch)``;
-        a short final batch repeats its last index."""
+        a short final batch repeats its last index. ``rows`` = (start,
+        size): only those rows of each batch."""
         indices = np.arange(len(self.files))
         if shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(indices)
@@ -252,5 +259,7 @@ class ClassificationDataset:
             batch_idx = list(indices[i : i + self.batch_size])
             while len(batch_idx) < self.batch_size:
                 batch_idx.append(batch_idx[-1])
+            if rows is not None:
+                batch_idx = batch_idx[rows[0]:rows[0] + rows[1]]
             imgs = np.stack(list(self._decode_pool().map(self.load, batch_idx)))
             yield imgs, self.labels[batch_idx]

@@ -22,6 +22,9 @@ batch statistics and returns its updated running statistics (Flax's
 ``BatchNorm(momentum=0.99)``: the biased variance ``max(0, E[x^2] - E[x]^2)``,
 ``ra <- 0.99 ra + 0.01 batch``); ConvBN ``i < k`` runs in inference mode
 and keeps its statistics, as Keras runs a ``trainable=False`` BatchNorm.
+With a ``batch_shard`` (one process's rows of a global batch), the batch
+statistics and the dropout mask are the global batch's, as the JAX
+package's sharded step computes them.
 
 Every strided conv and pool is VALID; stride-1 convs are SAME. Activations
 are NCHW tensors in ``torch.channels_last`` memory, so cuDNN runs NHWC.
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adipose_tpu_torch.models.unet import lecun_normal_
+from adipose_tpu_torch.parallel.collectives import all_reduce_sum
 
 _CL = torch.channels_last
 NUM_CONVS = 94
@@ -108,14 +112,24 @@ class _BatchNorm(nn.Module):
         self.register_buffer("mean", torch.empty(c, device=device))
         self.register_buffer("var", torch.empty(c, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, shard=None):
         """(normalized x, None), or in training (normalized x, (updated
-        running mean, updated running var)); x is float32 (B, C, H, W)."""
+        running mean, updated running var)); x is float32 (B, C, H, W).
+        With a ``shard`` (a ``BatchShard``) the training statistics are the
+        global batch's: the per-channel (sum x, sum x^2) all-reduced over
+        its group, differentiably."""
         if not train:
             mean, var, stats = self.mean, self.var, None
-        else:
+        elif shard is None:
             mean = x.mean(dim=(0, 2, 3))
             var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        else:
+            sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2, 3)),
+                                               (x * x).sum(dim=(0, 2, 3))]), shard.group)
+            count = shard.total * x.shape[2] * x.shape[3]
+            mean, sq = sums[0] / count, sums[1] / count
+            var = (sq - mean * mean).clamp_min(0.0)
+        if train:
             with torch.no_grad():
                 stats = (BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean,
                          BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -136,10 +150,10 @@ class ConvBN(nn.Module):
         self.stride = stride
         self.padding = (0, 0) if valid else (kh // 2, kw // 2)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, shard=None):
         w = self.conv.weight.to(x.dtype, memory_format=_CL)
         y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
-        y, stats = self.bn(y.to(torch.float32), train)
+        y, stats = self.bn(y.to(torch.float32), train, shard)
         return F.relu(y).to(x.dtype), stats
 
 
@@ -176,16 +190,18 @@ class InceptionV3(nn.Module):
             setattr(self, f"cbn_{i}", ConvBN(*shape, device=device))
         assert len(shapes) == NUM_CONVS
 
-    def forward(self, x: torch.Tensor, train: bool = False, frozen_below: int = 0):
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_below: int = 0,
+                shard=None):
         """The features; in training ``(features, stats)``, where ``stats``
         maps ``cbn_<i>.bn.{mean,var}`` to the updated running statistics of
-        each ConvBN ``i >= frozen_below``."""
+        each ConvBN ``i >= frozen_below`` (over the global batch of
+        ``shard``, a ``BatchShard``, when given)."""
         index = iter(range(NUM_CONVS))
         stats = {}
 
         def cbn(y, *_shape):
             i = next(index)
-            y, new = getattr(self, f"cbn_{i}")(y, train and i >= frozen_below)
+            y, new = getattr(self, f"cbn_{i}")(y, train and i >= frozen_below, shard)
             if new is not None:
                 stats[f"cbn_{i}.bn.mean"], stats[f"cbn_{i}.bn.var"] = new
             return y
@@ -207,6 +223,10 @@ class InceptionV3Classifier(nn.Module):
         self.dropout_rate = dropout_rate
         self.backbone = InceptionV3(compute_dtype, device=device)
         self.adipose_score = nn.Linear(2048, 1, device=device)
+        # The rows of a global batch this process holds (a BatchShard): in
+        # training, BatchNorm uses the global batch's statistics and dropout
+        # the global batch's mask, sliced to these rows.
+        self.batch_shard = None
 
     def init_params(self, generator: torch.Generator) -> "InceptionV3Classifier":
         """Seeded weights, drawn in creation order: He-scaled conv kernels
@@ -250,7 +270,11 @@ class InceptionV3Classifier(nn.Module):
         if generator is None:
             raise ValueError("InceptionV3Classifier in training needs a generator for dropout")
         keep_prob = 1.0 - self.dropout_rate
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        shard = self.batch_shard
+        rows = x.shape[0] if shard is None else shard.total
+        u = torch.rand((rows,) + x.shape[1:], generator=generator, device=x.device)
+        if shard is not None:
+            u = shard.rows(u)
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), device=x.device))
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_below: int = 0,
@@ -262,7 +286,8 @@ class InceptionV3Classifier(nn.Module):
         ``i < frozen_below`` runs in inference mode; ``generator`` draws the
         dropout mask."""
         x = x.permute(0, 3, 1, 2)
-        feats, stats = self.backbone(x, True, frozen_below) if train else (self.backbone(x), {})
+        feats, stats = (self.backbone(x, True, frozen_below, self.batch_shard) if train
+                        else (self.backbone(x), {}))
         pooled = feats.to(torch.float32).mean(dim=(2, 3))
         if train:
             pooled = self._dropout(pooled, generator)

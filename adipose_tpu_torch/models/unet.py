@@ -38,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from adipose_tpu_torch.ops.cuda.unet_kernels import diff_sigmoid_head
 
@@ -118,6 +119,20 @@ class DilatedUNet(nn.Module):
     (B, H, W) float32 class-1 probability, or a dict ``main_out``,
     ``aux_out1``, ``aux_out2`` with deep supervision.
 
+    ``remat`` recomputes the encoder's conv blocks in the backward instead
+    of keeping their activations; ``remat_level1`` recomputes the
+    full-resolution stages: the down1 block and the level-1 tail (the up1
+    stage and the main head). The regions are the JAX module's, run through
+    ``torch.utils.checkpoint``; the gradients are the plain path's, bit for
+    bit. ``remat_level1_prevent_cse`` is XLA's knob (an optimization
+    barrier); it is accepted and has no effect here, where nothing merges
+    the replay with the forward.
+
+    ``batch_shard`` (a :class:`~adipose_tpu_torch.parallel.multihost.BatchShard`)
+    says which rows of a global batch this process holds: dropout then draws
+    the global batch's masks and keeps those rows, so several processes
+    together draw what one process draws for the whole batch.
+
     Params are allocated uninitialized: call :meth:`init_params` or load a
     state dict.
     """
@@ -126,7 +141,8 @@ class DilatedUNet(nn.Module):
                  use_deep_supervision: bool = False,
                  dilation_rates: tuple = (1, 2, 4, 8, 16, 32),
                  compute_dtype: torch.dtype = torch.bfloat16, fast_head: bool = True,
-                 device=None):
+                 remat: bool = False, remat_level1: bool = False,
+                 remat_level1_prevent_cse: bool = True, device=None):
         super().__init__()
         nb = init_nb
         self.init_nb = init_nb
@@ -135,6 +151,10 @@ class DilatedUNet(nn.Module):
         self.compute_dtype = compute_dtype
         self.fast_head = fast_head
         self.dilation_rates = tuple(dilation_rates)
+        self.remat = remat
+        self.remat_level1 = remat_level1
+        self.remat_level1_prevent_cse = remat_level1_prevent_cse
+        self.batch_shard = None
 
         def conv(name, cin, cout, k=3, dilation=1, cls=Conv):
             setattr(self, name, cls(cin, cout, k, dilation, device=device))
@@ -164,39 +184,69 @@ class DilatedUNet(nn.Module):
                 m.reset_parameters(generator)
         return self
 
+    def _keep_mask(self, shape: torch.Size, generator: torch.Generator | None,
+                   device) -> torch.Tensor | None:
+        """The dropout keep-mask (``uniform < 1 - rate``) of a (B, C, H, W)
+        activation, its uniforms drawn as (B, H, W, C) so the mask shares the
+        activation's channels-last layout (with ``batch_shard``: the global
+        batch's, sliced to this process's rows); None outside training or at
+        rate 0."""
+        if not self.training or self.dropout_rate == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("DilatedUNet in training mode needs a generator for dropout")
+        b, c, h, w = shape
+        shard = self.batch_shard
+        u = torch.rand((b if shard is None else shard.total, h, w, c), generator=generator,
+                       device=device)
+        if shard is not None:
+            u = shard.rows(u)
+        return u.permute(0, 3, 1, 2) < 1.0 - self.dropout_rate
+
+    def _apply_dropout(self, x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
+        if keep is None:
+            return x
+        keep_prob = 1.0 - self.dropout_rate
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
     def _dropout(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         """Flax ``nn.Dropout``: keep where ``uniform < 1 - rate``, scaled by
         1 / (1 - rate); the identity outside training or at rate 0."""
-        if not self.training or self.dropout_rate == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("DilatedUNet in training mode needs a generator for dropout")
-        keep_prob = 1.0 - self.dropout_rate
-        b, c, h, w = x.shape
-        # drawn as (B, H, W, C) so the mask shares x's channels-last layout
-        u = torch.rand((b, h, w, c), generator=generator, device=x.device).permute(0, 3, 1, 2)
-        return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                                     device=x.device))
+        return self._apply_dropout(x, self._keep_mask(x.shape, generator, x.device))
 
-    def _up_stage(self, level: int, skip: torch.Tensor, y: torch.Tensor,
-                  generator: torch.Generator | None) -> torch.Tensor:
+    def _block(self, names: tuple[str, str], x: torch.Tensor) -> torch.Tensor:
+        """An encoder ``_ConvBlock``: two Conv3x3-ReLU."""
+        for name in names:
+            x = F.relu(getattr(self, name)(x))
+        return x
+
+    @staticmethod
+    def _region(remat: bool, fn, *args):
+        """``fn(*args)``, recomputed in the backward when ``remat`` is set and
+        autograd records. Nothing in a region reads the global RNG (dropout
+        takes its keep-masks as inputs), so its state is not kept."""
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
+    def _up_convs(self, level: int, skip: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         y = F.relu(getattr(self, f"up{level}_conv1")(y))
         y = torch.cat([skip, y], dim=1)
         y = F.relu(getattr(self, f"up{level}_conv2")(y))
-        y = F.relu(getattr(self, f"up{level}_conv3")(y))
-        return self._dropout(y, generator)
+        return F.relu(getattr(self, f"up{level}_conv3")(y))
 
-    def trunk(self, x: torch.Tensor, generator: torch.Generator | None = None
-              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Everything but the heads: the decoder outputs (up1, up2, up3) in
-        the compute dtype, channels-last. ``generator`` draws the dropout
-        masks in training mode."""
+    def _to_level1(self, x: torch.Tensor, generator: torch.Generator | None):
+        """Everything before the level-1 tail: (down1, up2, up3) in the
+        compute dtype, channels-last."""
         if x.dim() == 3:
             x = x.unsqueeze(1)
         x = x.to(self.compute_dtype).contiguous(memory_format=_CL)
-        down1 = F.relu(self.down1_conv2(F.relu(self.down1_conv1(x))))
-        down2 = F.relu(self.down2_conv2(F.relu(self.down2_conv1(F.max_pool2d(down1, 2)))))
-        down3 = F.relu(self.down3_conv2(F.relu(self.down3_conv1(F.max_pool2d(down2, 2)))))
+        down1 = self._region(self.remat or self.remat_level1, self._block,
+                             ("down1_conv1", "down1_conv2"), x)
+        down2 = self._region(self.remat, self._block, ("down2_conv1", "down2_conv2"),
+                             F.max_pool2d(down1, 2))
+        down3 = self._region(self.remat, self._block, ("down3_conv1", "down3_conv2"),
+                             F.max_pool2d(down2, 2))
         d = F.max_pool2d(down3, 2)
         taps = []
         for i in range(len(self.dilation_rates)):
@@ -205,24 +255,51 @@ class DilatedUNet(nn.Module):
                 d = self._dropout(d, generator)
             taps.append(d)
         bottleneck = sum(taps)
-        up3 = self._up_stage(3, down3, bottleneck, generator)
-        up2 = self._up_stage(2, down2, up3, generator)
-        up1 = self._up_stage(1, down1, up2, generator)
-        return up1, up2, up3
+        up3 = self._dropout(self._up_convs(3, down3, bottleneck), generator)
+        up2 = self._dropout(self._up_convs(2, down2, up3), generator)
+        return down1, up2, up3
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
-        h, w = x.shape[-2:]
+    def _up1_keep(self, down1: torch.Tensor, generator: torch.Generator | None):
+        """up1's dropout keep-mask, drawn before the level-1 tail (in the
+        order the plain path draws it), so a recompute of the tail reuses it
+        and the generator advances once."""
+        b, _, h, w = down1.shape
+        return self._keep_mask((b, self.init_nb, h, w), generator, down1.device)
+
+    def _up1(self, down1: torch.Tensor, up2: torch.Tensor, keep) -> torch.Tensor:
+        return self._apply_dropout(self._up_convs(1, down1, up2), keep)
+
+    def _main_head(self, up1: torch.Tensor) -> torch.Tensor:
         # The head kernel reads channels-last. cuDNN returns that layout, so
         # this is a no-op when run; a torch.export trace records the layout
         # the meta functions guess (row-major) unless it is stated here.
-        up1, up2, up3 = (t.contiguous(memory_format=_CL) for t in self.trunk(x, generator))
+        up1 = up1.contiguous(memory_format=_CL)
         if self.fast_head:
-            main = diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1.dtype))
-        else:
-            logits = self.output_softmax(up1)
-            main = torch.softmax(logits.to(torch.float32), dim=1)[:, 1]
+            return diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1.dtype))
+        logits = self.output_softmax(up1)
+        return torch.softmax(logits.to(torch.float32), dim=1)[:, 1]
+
+    def _level1_tail(self, down1: torch.Tensor, up2: torch.Tensor, keep) -> torch.Tensor:
+        """The up1 stage and the main head: the full-resolution tail as one
+        function of (down1, up2), the ``remat_level1`` region."""
+        return self._main_head(self._up1(down1, up2, keep))
+
+    def trunk(self, x: torch.Tensor, generator: torch.Generator | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Everything but the heads: the decoder outputs (up1, up2, up3) in
+        the compute dtype, channels-last. ``generator`` draws the dropout
+        masks in training mode."""
+        down1, up2, up3 = self._to_level1(x, generator)
+        return self._up1(down1, up2, self._up1_keep(down1, generator)), up2, up3
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        h, w = x.shape[-2:]
+        down1, up2, up3 = self._to_level1(x, generator)
+        main = self._region(self.remat_level1, self._level1_tail, down1, up2,
+                            self._up1_keep(down1, generator))
         if not self.use_deep_supervision:
             return main
+        up2, up3 = (t.contiguous(memory_format=_CL) for t in (up2, up3))
         if self.fast_head:
             aux1 = sigmoid_head(self.aux_out1, up3)
             aux2 = sigmoid_head(self.aux_out2, up2)

@@ -77,10 +77,12 @@ def checkpoint_dir_for(checkpoint_name: str, build_timestamp: str | None = None,
     return d
 
 
-def classifier_dir_for(root: str | Path, percentile_norm: bool, suffix: str = "") -> Path:
-    """Timestamped classifier run directory, as the JAX trainer names it."""
+def classifier_dir_for(root: str | Path, percentile_norm: bool, suffix: str = "",
+                       timestamp: str | None = None) -> Path:
+    """Timestamped classifier run directory, as the JAX trainer names it
+    (``timestamp`` defaults to now)."""
     norm = "_percentile" if percentile_norm else ""
-    d = Path(root) / f"{timestamp_now()}_classifier_adipose_sybreosin{norm}{suffix}"
+    d = Path(root) / f"{timestamp or timestamp_now()}_classifier_adipose_sybreosin{norm}{suffix}"
     d.mkdir(parents=True, exist_ok=True)
     return d
 

@@ -27,10 +27,18 @@ here: the draws never depended on it.
 :func:`make_inception_preprocess` and :func:`_make_val_step` serve the WSI
 cascade's classifier gate as well (``_make_val_step(model, True, 1.0, 99.0)``).
 
-Not ported yet (it raises): more than one device. ``pretrained_weights``
-takes a TF ``.h5`` (the Keras InceptionV3 ImageNet file the reference starts
-from) through :mod:`adipose_tpu_torch.models.tf_import`, or a run's
-``params.npz``.
+On several devices the trainer is one rank of a ``torch.distributed``
+process group, as :mod:`adipose_tpu_torch.train.trainer_unet` is: each rank
+decodes and preprocesses its rows of each global batch on the global
+batch's draws, the train-mode BatchNorms use the global batch's statistics
+and the dropout mask is the global batch's (``InceptionV3Classifier.
+batch_shard``), the loss, accuracy and val AUC are the global batch's, and
+the gradient shares are summed over the ranks. Rank 0 alone writes the
+artifacts.
+
+``pretrained_weights`` takes a TF ``.h5`` (the Keras InceptionV3 ImageNet
+file the reference starts from) through
+:mod:`adipose_tpu_torch.models.tf_import`, or a run's ``params.npz``.
 """
 
 from __future__ import annotations
@@ -46,13 +54,16 @@ from torch.func import functional_call
 
 from adipose_tpu_torch.core.config import ClassifierConfig, TrainConfig
 from adipose_tpu_torch.core.seeding import generator_for
-from adipose_tpu_torch.data.augment import batched_classification, draw_tier
+from adipose_tpu_torch.data.augment import batched_classification, draw_for_shard
 from adipose_tpu_torch.data.loader import ClassificationDataset, prefetch_batches
 from adipose_tpu_torch.models.convert import flax_inception_to_torch, torch_inception_to_flax
 from adipose_tpu_torch.models.inception import (InceptionV3Classifier, backbone_param_mask,
                                                 frozen_conv_boundary)
 from adipose_tpu_torch.ops.metrics import binary_accuracy, roc_auc
 from adipose_tpu_torch.ops.normalize import batched_percentile_unit_fast
+from adipose_tpu_torch.parallel.collectives import all_reduce_grads_, gather_rows
+from adipose_tpu_torch.parallel.multihost import (BatchShard, broadcast_object,
+                                                  process_count, process_index)
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.schedules import EarlyStopping, ReduceLROnPlateau
 from adipose_tpu_torch.train.state import TrainState, classifier_stats_mask, set_learning_rate
@@ -133,7 +144,8 @@ def _make_preprocess_step(percentile_norm: bool, p_low: float, p_high: float,
 
 
 def _make_train_step(model: InceptionV3Classifier, label_smoothing: float,
-                     stats_mask: dict[str, bool] | None, frozen_below: int = 0):
+                     stats_mask: dict[str, bool] | None, frozen_below: int = 0,
+                     shard: BatchShard | None = None):
     """``step(state, x, labels, class_w, generator) -> metrics`` on
     preprocessed (B, 299, 299, 3) inputs: the train-mode forward with
     ConvBN ``i < frozen_below`` in inference mode (Keras's
@@ -141,11 +153,18 @@ def _make_train_step(model: InceptionV3Classifier, label_smoothing: float,
     probabilities clipped to [1e-7, 1 - 1e-7] with per-class weights
     ``class_w`` (2,), the Keras-Adam update of the trainable params, and the
     updated running statistics where ``stats_mask`` allows. ``generator``
-    draws the dropout mask; the metrics (loss, acc) are device tensors."""
+    draws the dropout mask; the metrics (loss, acc) are device tensors.
+    With ``shard`` (the model's ``batch_shard`` too) the batch is this
+    rank's rows: the probabilities and labels are all-gathered, the loss
+    and accuracy are the global batch's and the gradients are summed over
+    the ranks."""
     buffers = dict(model.named_buffers())
 
     def step(state: TrainState, x, labels, class_w, generator):
         probs, new_stats = model(x, train=True, frozen_below=frozen_below, generator=generator)
+        if shard is not None:
+            probs = gather_rows(probs, 0, shard.group)
+            labels = gather_rows(labels, 0, shard.group)
         ls = label_smoothing
         y = labels * (1.0 - ls) + 0.5 * ls
         per = -(y * torch.log(probs.clamp(1e-7, 1 - 1e-7))
@@ -154,6 +173,8 @@ def _make_train_step(model: InceptionV3Classifier, label_smoothing: float,
         loss = (per * sample_w).mean()
         grads = torch.autograd.grad(loss, [state.params[k] for k in state.trainable],
                                     allow_unused=True)
+        if shard is not None:
+            all_reduce_grads_(grads, shard.group)
         keep = [k for k in new_stats if stats_mask is None or stats_mask[k]]
         if keep:
             torch._foreach_copy_([buffers[k] for k in keep], [new_stats[k] for k in keep])
@@ -229,9 +250,10 @@ class ClassifierTrainer:
         # classifier LRs: 1e-3 warmup / 1e-4 fine-tune (:479-503)
         self.cfg = cfg or TrainConfig(batch_size=16, lr_phase1=1e-3, lr_phase2=1e-4)
         self.model_cfg = model_cfg or ClassifierConfig()
-        if self.cfg.num_devices > 1:
-            raise NotImplementedError("train-classifier on more than one device is not "
-                                      "ported yet")
+        # The ranks are the process group's (one process per device).
+        self.shard = (BatchShard.of_process(self.cfg.batch_size) if process_count() > 1
+                      else None)
+        self.is_main = process_index() == 0
         self.device = torch.device(device)
         self.label_smoothing = label_smoothing
         self.percentile_norm = percentile_norm
@@ -248,7 +270,8 @@ class ClassifierTrainer:
                                               cache_limit_mb=self.cfg.cache_limit_mb)
         if not len(self.train_data):
             raise FileNotFoundError(f"no classifier tiles under {root}")
-        self.ckpt_dir = ckpt.classifier_dir_for(checkpoint_root, percentile_norm, suffix)
+        self.ckpt_dir = ckpt.classifier_dir_for(checkpoint_root, percentile_norm, suffix,
+                                                broadcast_object(ckpt.timestamp_now()))
 
         if use_class_weights:
             self.class_weights = compute_image_level_class_weights(
@@ -261,13 +284,20 @@ class ClassifierTrainer:
             compute_dtype=(torch.bfloat16 if self.model_cfg.compute_dtype == "bfloat16"
                            else torch.float32),
             device=self.device)
-        (self.ckpt_dir / "config.json").write_text(json.dumps({
-            "label_smoothing": label_smoothing,
-            "percentile_norm": percentile_norm,
-            "augment_low_res": augment_low_res,
-            "class_weights": self.class_weights,
-            **vars(self.cfg),
-        }, indent=2, default=str))
+        self.model.batch_shard = self.shard
+        if self.is_main:
+            (self.ckpt_dir / "config.json").write_text(json.dumps({
+                "label_smoothing": label_smoothing,
+                "percentile_norm": percentile_norm,
+                "augment_low_res": augment_low_res,
+                "class_weights": self.class_weights,
+                **vars(self.cfg),
+            }, indent=2, default=str))
+
+    @property
+    def rows(self) -> tuple[int, int] | None:
+        """(start, size) of this rank's rows of each global batch, or None."""
+        return None if self.shard is None else (self.shard.start, self.shard.size)
 
     # -- variables ------------------------------------------------------------
 
@@ -321,7 +351,8 @@ class ClassifierTrainer:
         return live
 
     def _save(self, name: str, variables: dict[str, torch.Tensor]) -> None:
-        ckpt.save_params(self.ckpt_dir, name, torch_inception_to_flax(variables))
+        if self.is_main:
+            ckpt.save_params(self.ckpt_dir, name, torch_inception_to_flax(variables))
 
     # -- phases ---------------------------------------------------------------
 
@@ -336,7 +367,7 @@ class ClassifierTrainer:
         prep_step = _make_preprocess_step(self.percentile_norm, cfg.percentile_low,
                                           cfg.percentile_high, self.augment_low_res)
         train_step = _make_train_step(self.model, self.label_smoothing, smask,
-                                      frozen_conv_boundary(unfreeze_from))
+                                      frozen_conv_boundary(unfreeze_from), self.shard)
         val_step = _make_val_step(self.model, self.percentile_norm, cfg.percentile_low,
                                   cfg.percentile_high)
         plateau = ReduceLROnPlateau(lr=lr, patience=patience, min_lr=1e-6)
@@ -350,20 +381,25 @@ class ClassifierTrainer:
             t0 = time.time()
             tms = []
             for b, (imgs, labels) in enumerate(prefetch_batches(
-                    self.train_data.epoch_batches(epoch))):
+                    self.train_data.epoch_batches(epoch, rows=self.rows))):
                 # one generator a batch: its augmentation draws, then its dropout mask
                 gen = generator_for(f"cls.p{phase}", cfg.seed, epoch * 100003 + b, device=dev)
                 size = INCEPTION_SIZE if self.augment_low_res else imgs.shape[-1]
-                draws = draw_tier(gen, "classification", imgs.shape[0], size, size)
+                draws = draw_for_shard(gen, "classification", imgs.shape[0], size, size,
+                                       self.shard)
                 x = prep_step(_to_device(imgs, dev), draws)
                 tms.append(train_step(state, x, _to_device(labels, dev), class_w, gen))
             probs, labels_all = [], []
             for imgs, labels in prefetch_batches(
-                    self.val_data.epoch_batches(epoch, shuffle=False)):
+                    self.val_data.epoch_batches(epoch, shuffle=False, rows=self.rows)):
                 probs.append(val_step(live, _to_device(imgs, dev)))
                 labels_all.append(labels)
             probs = torch.cat(probs)
             labels_t = _to_device(np.concatenate(labels_all), dev)
+            if self.shard is not None:  # the global batches' rows, in batch order
+                n = len(labels_all)
+                probs, labels_t = (gather_rows(t.reshape(n, -1), 1, self.shard.group).reshape(-1)
+                                   for t in (probs, labels_t))
             # the epoch's one read of the device
             host = torch.cat([torch.stack([torch.stack([m["loss"], m["acc"]]) for m in tms])
                               .reshape(-1), roc_auc(probs, labels_t)[None],
@@ -373,7 +409,11 @@ class ClassifierTrainer:
             row = {"loss": float(np.mean(steps[:, 0])), "acc": float(np.mean(steps[:, 1])),
                    "val_auc": val_auc, "val_acc": val_acc, "lr": plateau.lr,
                    "epoch_time_s": time.time() - t0}
-            logger.log(epoch, row)
+            # every rank takes rank 0's row, so every decision below agrees
+            row = broadcast_object(row)
+            val_auc = row["val_auc"]
+            if self.is_main:
+                logger.log(epoch, row)
             improved = val_auc > best_auc
             if improved:
                 best_auc = val_auc

@@ -20,10 +20,24 @@ means, so the host enqueues ahead while the device works, which is the
 JAX package's 1-deep augment/step pipelining on one stream. A background
 thread decodes the next batches meanwhile (:func:`prefetch_batches`).
 
-Not ported yet (each raises): more than one device (``num_devices > 1``),
-spatial sharding, ``UNetConfig.remat``/``remat_level1``; the TPU compile-OOM
-retry ladder has no counterpart. ``--pretrained-weights`` takes a TF ``.h5``
-through :mod:`adipose_tpu_torch.models.tf_import`, or a run's ``params.npz``.
+On several devices the trainer is one rank of a ``torch.distributed``
+process group, one process per device (``adipose-torch train-unet
+--num-devices N`` starts them, or torchrun does). The step is the 1-rank
+step of the global batch, as the JAX package's sharded program is: each
+rank decodes only its rows of each global batch (:class:`BatchShard`),
+draws the augmentation and the dropout masks for the global batch and keeps
+its rows, all-gathers the outputs (differentiably) and the masks, computes
+the global loss, Dice and validation statistics, and all-reduces its share
+of the gradients (a sum) before the identical update on every rank. Rank 0
+alone writes the artifacts; the epoch's logged row is rank 0's on every
+rank, so plateau, early-stopping and EMA decisions agree.
+
+``UNetConfig.remat``/``remat_level1`` recompute the JAX package's regions
+in the backward (:class:`~adipose_tpu_torch.models.unet.DilatedUNet`).
+Not ported yet (it raises): ``--shard-spatial`` training; the TPU
+compile-OOM retry ladder has no counterpart. ``--pretrained-weights`` takes
+a TF ``.h5`` through :mod:`adipose_tpu_torch.models.tf_import`, or a run's
+``params.npz``.
 """
 
 from __future__ import annotations
@@ -45,6 +59,9 @@ from adipose_tpu_torch.models.unet import DilatedUNet, encoder_param_mask
 from adipose_tpu_torch.ops import losses as L
 from adipose_tpu_torch.ops.metrics import activation_stats
 from adipose_tpu_torch.ops.normalize import batched_percentile_unit_fast
+from adipose_tpu_torch.parallel.collectives import all_reduce_grads_, gather_rows
+from adipose_tpu_torch.parallel.multihost import (BatchShard, barrier, broadcast_object,
+                                                  process_count, process_index)
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.ema import EmaTracker
 from adipose_tpu_torch.train.schedules import (EarlyStopping, ReduceLROnPlateau,
@@ -52,13 +69,14 @@ from adipose_tpu_torch.train.schedules import (EarlyStopping, ReduceLROnPlateau,
 from adipose_tpu_torch.train.state import TrainState, set_learning_rate, unet_loss_from_config
 
 
-def make_augment_step(tier: str):
+def make_augment_step(tier: str, shard: BatchShard | None = None):
     """``augment_step(generator, images_u8, masks_u8)``: the tier over a
-    (B, H, W) uint8 batch, as float32 images and masks."""
+    (B, H, W) uint8 batch, as float32 images and masks (with ``shard``: the
+    batch is this rank's rows of the global batch, on the global draws)."""
 
     def augment_step(generator, images_u8, masks_u8):
         return augment_batch(generator, images_u8.to(torch.float32),
-                             masks_u8.to(torch.float32), tier)
+                             masks_u8.to(torch.float32), tier, shard)
 
     return augment_step
 
@@ -73,22 +91,41 @@ def normalize_images(images: torch.Tensor, norm_method: str, mean: torch.Tensor,
     return batched_percentile_unit_fast(images, p_low, p_high)
 
 
-def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_high: float):
+def _global(out, masks, shard: BatchShard | None):
+    """The global batch's outputs (a tensor or the deep-supervision dict)
+    and masks from this rank's rows: an all-gather, differentiable for the
+    outputs. The rows themselves without a shard."""
+    if shard is None:
+        return out, masks
+    if isinstance(out, dict):
+        out = {k: gather_rows(v, 0, shard.group) for k, v in out.items()}
+    else:
+        out = gather_rows(out, 0, shard.group)
+    with torch.no_grad():
+        return out, gather_rows(masks, 0, shard.group)
+
+
+def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_high: float,
+                           shard: BatchShard | None = None):
     """``step(state, images, masks, generator, mean, std) -> metrics``:
     normalize, forward and backward, then the optimizer update, on an
     augmented float32 batch. ``generator`` draws the dropout masks; the
-    metrics are device tensors."""
+    metrics are device tensors. With ``shard`` the batch is this rank's rows:
+    the loss and metrics are the global batch's and the gradients are summed
+    over the ranks before the update."""
 
     def step(state: TrainState, images, masks, generator, mean, std):
         images = normalize_images(images.to(torch.float32), norm_method, mean, std,
                                   p_low, p_high)
-        masks = masks.to(torch.float32)
         model.train()
-        out = model(images, generator=generator)
+        out, masks = _global(model(images, generator=generator), masks.to(torch.float32),
+                             shard)
         loss = loss_fn(masks, out)
         main = out["main_out"] if isinstance(out, dict) else out
         grads = torch.autograd.grad(loss, [state.params[k] for k in state.trainable],
                                     allow_unused=True)
+        if shard is not None:
+            all_reduce_grads_(grads, shard.group)
         state.apply_gradients(grads)
         with torch.no_grad():
             return {"loss": loss.detach(), "dice_coef": L.dice_coef(masks, main.detach())}
@@ -96,17 +133,18 @@ def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_hig
     return step
 
 
-def _make_val_step(model, loss_fn, norm_method: str, p_low: float, p_high: float):
+def _make_val_step(model, loss_fn, norm_method: str, p_low: float, p_high: float,
+                   shard: BatchShard | None = None):
     """``step(images_u8, masks_u8, mean, std) -> metrics``: loss, Dice and
-    activation statistics of the main output, in eval mode."""
+    activation statistics of the main output, in eval mode (of the global
+    batch, with ``shard``)."""
 
     def step(images_u8, masks_u8, mean, std):
         model.eval()
         with torch.inference_mode():
             images = normalize_images(images_u8.to(torch.float32), norm_method, mean, std,
                                       p_low, p_high)
-            masks = masks_u8.to(torch.float32)
-            out = model(images)
+            out, masks = _global(model(images), masks_u8.to(torch.float32), shard)
             main = out["main_out"] if isinstance(out, dict) else out
             return {"loss": loss_fn(masks, out), "dice_coef": L.dice_coef(masks, main),
                     **activation_stats(main)}
@@ -159,15 +197,18 @@ class UNetTrainer:
         self.cfg = cfg or TrainConfig()
         self.model_cfg = model_cfg or UNetConfig()
         self.device = torch.device(device)
-        if self.cfg.num_devices > 1:
-            raise NotImplementedError("train-unet --num-devices > 1 is not ported yet")
         if self.cfg.shard_spatial:
-            raise NotImplementedError("train-unet --shard-spatial is not ported yet")
-        if self.model_cfg.remat or self.model_cfg.remat_level1:
-            raise NotImplementedError("UNetConfig.remat / remat_level1 are not ported yet")
+            raise NotImplementedError("train-unet --shard-spatial is not ported yet: "
+                                      "spatially sharded training is the next scale-out slice")
+        # The ranks are the process group's (one process per device); one
+        # process trains the whole batch on its device.
+        self.shard = (BatchShard.of_process(self.cfg.batch_size) if process_count() > 1
+                      else None)
+        self.is_main = process_index() == 0
         self.data_root = Path(data_root)
-        self.ckpt_dir = ckpt.checkpoint_dir_for(checkpoint_name, build_timestamp,
-                                                checkpoint_root)
+        self.ckpt_dir = ckpt.checkpoint_dir_for(
+            checkpoint_name, broadcast_object(build_timestamp or ckpt.timestamp_now()),
+            checkpoint_root)
         self.model = DilatedUNet(
             init_nb=self.model_cfg.init_nb,
             dropout_rate=self.model_cfg.dropout_rate,
@@ -176,8 +217,11 @@ class UNetTrainer:
             compute_dtype=(torch.bfloat16 if self.model_cfg.compute_dtype == "bfloat16"
                            else torch.float32),
             fast_head=self.model_cfg.fast_head,
+            remat=self.model_cfg.remat,
+            remat_level1=self.model_cfg.remat_level1,
             device=self.device,
         )
+        self.model.batch_shard = self.shard
         self.loss_fn = unet_loss_from_config(self.cfg)
         self.history: list = []
 
@@ -194,9 +238,17 @@ class UNetTrainer:
             raise FileNotFoundError(f"no validation tiles under {ds}")
 
         # Global train stats -> normalization_stats.json (:1194-1207)
-        self.mean, self.std = compute_mean_std(dataset_image_paths(ds / "train" / "images"))
-        ckpt.save_normalization_stats(self.ckpt_dir, self.mean, self.std,
-                                      self.cfg.normalization_method)
+        self.mean, self.std = broadcast_object(
+            compute_mean_std(dataset_image_paths(ds / "train" / "images")) if self.is_main
+            else None)
+        if self.is_main:
+            ckpt.save_normalization_stats(self.ckpt_dir, self.mean, self.std,
+                                          self.cfg.normalization_method)
+
+    @property
+    def rows(self) -> tuple[int, int] | None:
+        """(start, size) of this rank's rows of each global batch, or None."""
+        return None if self.shard is None else (self.shard.start, self.shard.size)
 
     # -- params ---------------------------------------------------------------
 
@@ -234,7 +286,8 @@ class UNetTrainer:
         return out
 
     def _save(self, name: str, params: dict[str, torch.Tensor]) -> None:
-        ckpt.save_params(self.ckpt_dir, name, torch_unet_to_flax(params))
+        if self.is_main:
+            ckpt.save_params(self.ckpt_dir, name, torch_unet_to_flax(params))
 
     # -- phases ---------------------------------------------------------------
 
@@ -246,10 +299,10 @@ class UNetTrainer:
         mask = encoder_param_mask(live) if freeze_encoder else None
         state = TrainState.create(live, cfg.optimizer, lr, cfg.weight_decay, mask)
         train_step = _make_fused_train_step(self.model, self.loss_fn, cfg.normalization_method,
-                                            cfg.percentile_low, cfg.percentile_high)
+                                            cfg.percentile_low, cfg.percentile_high, self.shard)
         val_step = _make_val_step(self.model, self.loss_fn, cfg.normalization_method,
-                                  cfg.percentile_low, cfg.percentile_high)
-        augment_step = make_augment_step(augment_tier)
+                                  cfg.percentile_low, cfg.percentile_high, self.shard)
+        augment_step = make_augment_step(augment_tier, self.shard)
         warmup = cfg.warmup_epochs if phase == 1 else cfg.warmup_epochs_phase2
         schedule = (cosine_with_warmup(lr, min_lr, warmup, epochs)
                     if cfg.use_cosine_schedule else None)
@@ -267,6 +320,7 @@ class UNetTrainer:
         # the optimizer moments restart fresh, as in the JAX package.
         start_epoch = 0
         latest_meta = self.ckpt_dir / "latest_state.json"
+        barrier()  # rank 0's writes of the last phase are done before any rank reads
         if self.auto_resume and latest_meta.exists():
             meta = json.loads(latest_meta.read_text())
             if meta.get("phase") == phase and (self.ckpt_dir / "latest").exists():
@@ -309,19 +363,25 @@ class UNetTrainer:
             # epoch are reproducible in isolation, as the JAX key schedule
             gen = generator_for(f"train.p{phase}", cfg.seed, epoch, device=dev)
             train_metrics = []
-            for imgs, masks in prefetch_batches(self.train_data.epoch_batches(epoch)):
+            for imgs, masks in prefetch_batches(self.train_data.epoch_batches(epoch,
+                                                                              rows=self.rows)):
                 aug_imgs, aug_masks = augment_step(gen, _to_device(imgs, dev),
                                                    _to_device(masks, dev))
                 train_metrics.append(train_step(state, aug_imgs, aug_masks, gen, mean, std))
             val_metrics = [val_step(_to_device(imgs, dev), _to_device(masks, dev), mean, std)
                            for imgs, masks in prefetch_batches(
-                               self.val_data.epoch_batches(epoch, shuffle=False))]
+                               self.val_data.epoch_batches(epoch, shuffle=False,
+                                                           rows=self.rows))]
 
             tm = _epoch_means(train_metrics)
             vm = _epoch_means(val_metrics, "val_")
             row = {**tm, **vm, "lr": schedule(epoch) if schedule else plateau.lr,
                    "epoch_time_s": time.time() - t0}
-            logger.log(epoch, row)
+            # every rank takes rank 0's row, so every decision below agrees
+            row = broadcast_object(row)
+            vm = {k: row[k] for k in vm}
+            if self.is_main:
+                logger.log(epoch, row)
             self.history.append({"phase": phase, "epoch": epoch, **row})
 
             val_dice = vm["val_dice_coef"]
@@ -334,7 +394,7 @@ class UNetTrainer:
                 self._save(f"phase{phase}_best", best_params)
             if plateau is not None:
                 set_learning_rate(state.optimizer, plateau.update(val_dice))
-            if self.auto_resume:
+            if self.auto_resume and self.is_main:
                 self._save("latest", params_now)
                 if ema is not None and ema.ema_params is not None:
                     self._save("latest_ema", ema.ema_params)
@@ -371,18 +431,19 @@ class UNetTrainer:
         if resume_from is not None:
             params = flax_unet_to_torch(ckpt.load_params(ckpt.resolve_weights_path(resume_from)))
 
-        ckpt.write_training_settings(self.ckpt_dir, {
-            **vars(cfg),
-            "use_deep_supervision": self.model_cfg.use_deep_supervision,
-            "init_nb": self.model_cfg.init_nb,
-            "tile_size": self.model_cfg.tile_size,
-            "dropout_rate": self.model_cfg.dropout_rate,
-            "dilation_rates": tuple(self.model_cfg.dilation_rates),
-            "train_tiles": len(self.train_data),
-            "val_tiles": len(self.val_data),
-            "normalization_mean": self.mean,
-            "normalization_std": self.std,
-        })
+        if self.is_main:
+            ckpt.write_training_settings(self.ckpt_dir, {
+                **vars(cfg),
+                "use_deep_supervision": self.model_cfg.use_deep_supervision,
+                "init_nb": self.model_cfg.init_nb,
+                "tile_size": self.model_cfg.tile_size,
+                "dropout_rate": self.model_cfg.dropout_rate,
+                "dilation_rates": tuple(self.model_cfg.dilation_rates),
+                "train_tiles": len(self.train_data),
+                "val_tiles": len(self.val_data),
+                "normalization_mean": self.mean,
+                "normalization_std": self.std,
+            })
         e1 = cfg.epochs_phase1 if epochs_phase1 is None else epochs_phase1
         e2 = cfg.epochs_phase2 if epochs_phase2 is None else epochs_phase2
 
@@ -409,11 +470,12 @@ class UNetTrainer:
                                        cfg.ema_decay_phase2, freeze_encoder=False,
                                        save_ema=True, augment_tier=tier)
         self._save("weights_best_overall", best2)
-        try:
-            from adipose_tpu_torch.train.plots import plot_training_history
+        if self.is_main:
+            try:
+                from adipose_tpu_torch.train.plots import plot_training_history
 
-            plot_training_history(self.ckpt_dir)
-        except Exception:
-            pass  # plotting is best-effort; never fail a finished run
+                plot_training_history(self.ckpt_dir)
+            except Exception:
+                pass  # plotting is best-effort; never fail a finished run
         return {"phase1_best_dice": dice1, "phase2_best_dice": dice2,
                 "checkpoint_dir": str(self.ckpt_dir)}

@@ -2,8 +2,9 @@
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
 training, classifier training, classifier evaluation, dataset builds, WSI
 tools, WSI preparation tools, stain and analysis tools, serving export and
-TF weight import, and conv-chain layout probe once on one CUDA GPU and check
-its kernels.
+TF weight import, scale-out over torch.distributed (two ranks), remat and the
+spatially sharded predict, and conv-chain layout probe once on one CUDA GPU
+and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -148,6 +149,20 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      CUDA-event time in turns) for both models; ``import-weights`` of a
      seeded full-width U-Net and InceptionV3 TF file, bit-equal, where h5py
      is installed (else one line says so); export and load wall times
+  9h. scale-out  ``adipose-torch train-unet --num-devices 2`` prints its
+     plan (the JAX planner: one rank on one GPU); then two ranks of the
+     phase's own (NCCL over two GPUs, else gloo sharing the card) run the
+     trainers' rank code: ``UNetTrainer`` at the train-unet defaults 1 + 1
+     epochs (D 16, P 12 a rank), its first step with the softmax and the
+     fast head (B 3, B' 3 a rank) against the 1-rank step from the same
+     params and draws; ``ClassifierTrainer`` at the train-classifier
+     defaults 1 + 1 epochs (P 6, D 4 a rank), its first phase-2 step in
+     float32 against the 1-rank step; ``spatial_unet_predict`` of 16 x
+     1024^2 over the ranks' slabs in float32 and bf16 against DilatedUNet on
+     one device (B once a predict on each slab); then, in this process, one
+     train step at batch 8 plain, with ``remat_level1`` and with ``remat``:
+     gradients bit-equal, the generator's state, B's launches, peak memory
+     and the step's time by CUDA events
   9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
@@ -206,7 +221,7 @@ from adipose_tpu_torch.ops.cuda.unet_kernels import (diff_sigmoid_head,
 from adipose_tpu_torch.ops.d4 import INVERSE_IDS, MODE_IDS
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
 from adipose_tpu_torch.core.seeding import generator_for
-from adipose_tpu_torch.data.augment import draw_tier
+from adipose_tpu_torch.data.augment import draw_for_shard, draw_tier
 from adipose_tpu_torch.data.loader import ClassificationDataset
 from adipose_tpu_torch.models.convert import flax_inception_to_torch
 from adipose_tpu_torch.models.inception import backbone_param_mask, frozen_conv_boundary
@@ -1338,18 +1353,20 @@ def phase_train_cli(dev, tmp: Path, data: Path, smi: str) -> dict:
 
 
 def first_step(trainer: UNetTrainer, params: dict, imgs: np.ndarray, masks: np.ndarray,
-               dev) -> tuple[float, dict[str, torch.Tensor]]:
+               dev, shard=None) -> tuple[float, dict[str, torch.Tensor]]:
     """Loss and gradients of one train step from ``params`` on one batch,
-    with the generator seeded alike; nothing is updated."""
+    with the generator seeded alike; nothing is updated. With ``shard`` the
+    batch is this rank's rows, on the global batch's draws (the model's
+    ``batch_shard`` must be ``shard`` too)."""
     cfg = trainer.cfg
     state = TrainState.create(trainer._load(params), cfg.optimizer, cfg.lr_phase1,
                               cfg.weight_decay)
     grads: list = []
     state.apply_gradients = lambda g: grads.extend(t.float().clone() for t in g)
     step = _make_fused_train_step(trainer.model, trainer.loss_fn, cfg.normalization_method,
-                                  cfg.percentile_low, cfg.percentile_high)
+                                  cfg.percentile_low, cfg.percentile_high, shard)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    aug_imgs, aug_masks = make_augment_step(cfg.augment_level)(
+    aug_imgs, aug_masks = make_augment_step(cfg.augment_level, shard)(
         gen, _to_device(imgs, dev), _to_device(masks, dev))
     stat = torch.zeros((), device=dev)  # unused by the percentile stretch
     metrics = step(state, aug_imgs, aug_masks, gen, stat, stat)
@@ -1504,10 +1521,12 @@ def cls_counts(steps: int, val_batches: int) -> dict[str, int]:
 
 
 def cls_first_step(trainer: ClassifierTrainer, variables: dict, imgs: torch.Tensor,
-                   labels: torch.Tensor, phase: int, dev, low_res: bool = False):
+                   labels: torch.Tensor, phase: int, dev, low_res: bool = False, shard=None):
     """Prep output, loss and gradients of the first train step of ``phase``
     from ``variables`` on one device batch, its draws and dropout from
-    batch 0's generator; nothing is kept."""
+    batch 0's generator; nothing is kept. With ``shard`` the batch is this
+    rank's rows, on the global batch's draws (the model's ``batch_shard``
+    must be ``shard`` too)."""
     cfg = trainer.cfg
     unfreeze_from = None if phase == 1 else trainer.model_cfg.unfreeze_from
     trainer._load(variables)
@@ -1520,9 +1539,9 @@ def cls_first_step(trainer: ClassifierTrainer, variables: dict, imgs: torch.Tens
     gen = generator_for(f"cls.p{phase}", SEED, 0, device=dev)
     size = INCEPTION_SIZE if low_res else imgs.shape[-1]
     x = _make_preprocess_step(True, 1.0, 99.0, low_res)(
-        imgs, draw_tier(gen, "classification", imgs.shape[0], size, size))
+        imgs, draw_for_shard(gen, "classification", imgs.shape[0], size, size, shard))
     step = _make_cls_step(trainer.model, trainer.label_smoothing, smask,
-                          frozen_conv_boundary(unfreeze_from))
+                          frozen_conv_boundary(unfreeze_from), shard)
     class_w = torch.ones(2, device=dev)
     metrics = step(state, x, labels, class_w, gen)
     return x, metrics["loss"].item(), dict(zip(state.trainable, grads))
@@ -3488,6 +3507,384 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
     }
 
 
+# ---- scale-out: ranks over torch.distributed, remat, the spatial predict ----------
+
+SCALE_RANKS = 2
+SPATIAL_BATCH = 16  # 1024^2 tiles, each cut into SCALE_RANKS slabs of rows
+REMAT_BATCH = 8
+# The 2-rank first steps against the 1-rank first step from the same params,
+# tiles and draws (bf16, deterministic cuDNN): phase 8's kernels-vs-plain
+# bounds. The ranks' convs run on half the batch, so cuDNN may pick other
+# algorithms, and the gathered loss and the all-reduced gradient shares sum
+# in another order.
+SCALE_LOSS_ATOL = TRAIN_LOSS_ATOL
+SCALE_GRAD_RTOL = TRAIN_GRAD_RTOL
+# The classifier's first phase-2 step is compared in float32 (TF32 off): in
+# bf16 the ranks' convs at batch 16 round otherwise than at 32, and a
+# BatchNorm-fed bias, whose gradient is a sum of nearly cancelling terms
+# under the next batch-statistic BatchNorm, then moved by 0.49 of its max
+# (cbn_72, on an NVIDIA H100). In float32 the loss is bit-equal there, but
+# the batch-statistic BatchNorms' backward (which subtracts the batch means
+# of the gradient) still magnifies the summation order: the worst leaf
+# 1.8e-2 of its max, 8.9e-4 of the step's max |g| (cbn_90, on an NVIDIA
+# H100; on the CPU at 4 x 299^2 from another seeded init, 5.0e-2 of cbn_71's
+# max and 1.1e-3 of the step's). The CPU test holds the same step to 1e-3 of
+# each leaf's max at 139^2, where it is better conditioned; the line prints
+# the 1-rank step's own spread under cuDNN's free choice of algorithms.
+CLS_SCALE_LOSS_ATOL = 1e-5
+CLS_SCALE_LEAF_RTOL = 1e-1  # of the leaf's max |g|
+CLS_SCALE_GRAD_RTOL = 5e-3  # of the step's max |g| over all leaves
+# The spatial predict against DilatedUNet on one device: float32 with TF32
+# off, and bf16, where the slabs' convs round where the full image's do not
+# (the JAX package's test bounds the same gap at 5e-3).
+SPATIAL_F32_ATOL = 1e-5
+SPATIAL_BF16_ATOL = 5e-3
+
+
+def worst_gap(got: dict, want: dict) -> tuple[str, float]:
+    """The leaf farthest from ``want``, as a share of that leaf's max."""
+    worst_leaf, worst = "", 0.0
+    for k, g in got.items():
+        rel = (g - want[k]).abs().max().item() / max(want[k].abs().max().item(), 1e-30)
+        if rel >= worst:
+            worst_leaf, worst = k, rel
+    return worst_leaf, worst
+
+
+def scale_out_rank(rank: int, tmp: str, data: str, cls_data: str, seg_run: str) -> list:
+    """What each rank of phase 9h runs, on its GPU (distinct GPUs) or on the
+    shared card: the trainers' own rank code, each first step beside the
+    1-rank step (rank 0), the spatial predict beside the one-device predict
+    (rank 0). Returns every rank's results (on rank 0)."""
+    import torch.distributed as dist
+
+    from adipose_tpu_torch.parallel.multihost import barrier
+    from adipose_tpu_torch.parallel.spatial_unet import spatial_unet_predict
+
+    dev = torch.device("cuda", rank if torch.cuda.device_count() >= SCALE_RANKS else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp, data, cls_data = Path(tmp), Path(data), Path(cls_data)
+    out: dict = {"rank": rank, "device": f"{dev} ({torch.cuda.get_device_name(dev)})"}
+
+    # U-Net training at the CLI's defaults, 1 + 1 epochs, each rank its rows
+    trainer = UNetTrainer(data, CLI_TRAIN, UNetConfig(use_deep_supervision=True),
+                          checkpoint_root=tmp / "ck_scale", build_timestamp="smoke", device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    out["train"] = (launches(), time.perf_counter() - t0, trainer.rows)
+    barrier()
+    if rank == 0:
+        out["train_rows"] = check_run(trainer.ckpt_dir, "2-rank training")
+
+    # first steps, softmax and fast head: the ranks against one rank
+    params = trainer.init_params()
+    imgs, masks = next(iter(trainer.train_data.epoch_batches(0, rows=trainer.rows)))
+    full = next(iter(trainer.train_data.epoch_batches(0)))
+    torch.backends.cudnn.deterministic = True
+    for fast_head in (False, True):
+        trainer.model.fast_head = fast_head
+        reset_launches()
+        loss, grads = first_step(trainer, params, imgs, masks, dev, trainer.shard)
+        counts = launches()
+        if rank == 0:
+            trainer.model.batch_shard = None
+            loss1, grads1 = first_step(trainer, params, *full, dev)
+            trainer.model.batch_shard = trainer.shard
+            out[f"step_fast{fast_head}"] = (loss, loss1, *worst_gap(grads, grads1), counts)
+        else:
+            out[f"step_fast{fast_head}"] = (loss, None, None, None, counts)
+        barrier()
+    trainer.model.fast_head = False
+    del trainer, params, grads
+    torch.cuda.empty_cache()
+
+    # classifier training at the train-classifier defaults, 1 + 1 epochs, 16 a
+    # rank; then the first phase-2 step in float32 (below)
+    ctrainer = ClassifierTrainer(cls_data, TrainConfig(batch_size=CLS_BATCH, lr_phase1=1e-3,
+                                                       lr_phase2=1e-4),
+                                 pretrained_weights=tmp / "cls_pretrained",
+                                 checkpoint_root=tmp / "ck_cls_scale", device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    ctrainer.train(1, 1)
+    torch.cuda.synchronize()
+    out["cls_train"] = (launches(), time.perf_counter() - t0)
+    barrier()
+    if rank == 0:
+        run = ctrainer.ckpt_dir
+        lines = (run / "training.log").read_text().splitlines()
+        row = dict(zip(lines[0].split(","), map(float, lines[1].split(","))))
+        missing = [a for a in CLS_ARTIFACTS if not (run / a).exists()]
+        if missing or len(lines) != 2 or not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"2-rank classifier run: missing {missing}, log {lines}")
+        out["cls_row"] = row
+    ctrainer.model.backbone.compute_dtype = torch.float32
+    start = flax_inception_to_torch(ckpt.load_params(tmp / "cls_pretrained" / "weights_best"))
+    cimgs, clab = next(iter(ctrainer.train_data.epoch_batches(0, rows=ctrainer.rows)))
+    reset_launches()
+    _, closs, cgrads = cls_first_step(ctrainer, start, _to_device(cimgs, dev),
+                                      _to_device(clab, dev), 2, dev, shard=ctrainer.shard)
+    counts = launches()
+    if rank == 0:
+        ctrainer.model.batch_shard = None
+        cimgs1, clab1 = next(iter(ctrainer.train_data.epoch_batches(0)))
+        _, closs1, cgrads1 = cls_first_step(ctrainer, start, _to_device(cimgs1, dev),
+                                            _to_device(clab1, dev), 2, dev)
+        top = max(g.abs().max().item() for g in cgrads1.values())
+        overall = max((cgrads[k] - g).abs().max().item() for k, g in cgrads1.items()) / top
+        # the floor: the same 1-rank step with cuDNN free to pick its algorithms
+        torch.backends.cudnn.deterministic = False
+        _, _, cgrads_free = cls_first_step(ctrainer, start, _to_device(cimgs1, dev),
+                                           _to_device(clab1, dev), 2, dev)
+        torch.backends.cudnn.deterministic = True
+        out["cls_step"] = (closs, closs1, *worst_gap(cgrads, cgrads1), counts, len(cgrads),
+                           overall, worst_gap(cgrads_free, cgrads1))
+    else:
+        out["cls_step"] = (closs, None, None, None, counts, len(cgrads), None, None)
+    del ctrainer, start, cgrads
+    barrier()
+    torch.cuda.empty_cache()
+
+    # the spatial predict: 16 x 1024^2 over the ranks' slabs, f32 and bf16
+    _, seg_params, mean, std = _load_segmenter(Path(seg_run), device=dev)
+    u8 = torch.randint(0, 256, (SPATIAL_BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(SEED))
+    images = (u8.to(torch.float32) - mean) / std
+    reset_launches()
+    got = {dt: spatial_unet_predict(seg_params, images, compute_dtype=dt)
+           for dt in (torch.float32, torch.bfloat16)}
+    counts = launches()
+    bf16_ms = cuda_ms(lambda x: spatial_unet_predict(seg_params, x), [images], 3)
+    out["spatial"] = (counts, bf16_ms, tuple(got[torch.float32].shape))
+    barrier()
+    if rank == 0:
+        gaps = {}
+        for dt in (torch.float32, torch.bfloat16):
+            model = DilatedUNet(init_nb=INIT_NB, compute_dtype=dt, device=dev)
+            model.load_state_dict(seg_params)
+            model.eval()
+            with torch.inference_mode():
+                ref = model(images)
+                d = (got[dt] - ref).abs()
+                gaps[str(dt)] = (d.max().item(), d.mean().item(),
+                                 bool(torch.isfinite(got[dt]).all()))
+            if dt == torch.bfloat16:
+                gaps["one_device_bf16_ms"] = cuda_ms(lambda x: model(x), [images], 3)
+            del model, ref, d
+            torch.cuda.empty_cache()
+        out["spatial_gaps"] = gaps
+    barrier()
+    torch.backends.cudnn.deterministic = False
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def remat_step(dev, model_kw: dict, imgs: torch.Tensor, masks: torch.Tensor,
+               deep_supervision: bool = False) -> dict:
+    """One fused U-Net step at init_nb 44 (fast head, dropout, moderate,
+    percentile, OHEM; by default no deep supervision: the aux heads'
+    bilinear resize has a backward of atomic adds) from the seeded init on
+    the given u8 batch: loss, gradients, the generator's state after it,
+    launches, peak memory; then the step's time by CUDA events."""
+    model = DilatedUNet(init_nb=INIT_NB, use_deep_supervision=deep_supervision, fast_head=True,
+                        device=dev, **model_kw)
+    live = dict(model.named_parameters())
+    with torch.no_grad():
+        for k, v in init_unet_params(model, SEED).items():
+            live[k].copy_(v)
+    state = TrainState.create(live, "adam", 1e-5, 0.01)
+    grads: list = []
+    state.apply_gradients = lambda g: grads.extend(t.float().clone() for t in g)
+    step = _make_fused_train_step(model, unet_loss_from_config(CLI_TRAIN), "percentile", 1.0,
+                                  99.0)
+    augment = make_augment_step("moderate")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stat = torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss = step(state, *augment(gen, imgs, masks), gen, stat, stat)["loss"].item()
+    out = {"loss": loss, "grads": dict(zip(state.trainable, grads)), "gen": gen.get_state(),
+           "launches": launches(), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    state.apply_gradients = lambda g: None
+    out["ms"] = cuda_ms(lambda b: step(state, *augment(gen, *b), gen, stat, stat),
+                        [(imgs, masks)], 3)
+    return out
+
+
+def phase_scale_out(dev, tmp: Path, data: Path, seg_run: Path, smi: str) -> dict:
+    """Phase 9h: the plan of ``train-unet --num-devices 2``, the trainers'
+    rank code on two ranks, remat, and the spatial predict."""
+    from adipose_tpu_torch.parallel.multihost import spawn_ranks
+
+    t_phase = time.perf_counter()
+    n_gpus = torch.cuda.device_count()
+    backend = "nccl" if n_gpus >= SCALE_RANKS else "gloo"
+    plan = io.StringIO()
+    with contextlib.redirect_stdout(plan):
+        cli.main(["train-unet", "--data-root", str(data), "--epochs-phase1", "0",
+                  "--epochs-phase2", "0", "--num-devices", str(SCALE_RANKS), "--device", "cuda",
+                  "--checkpoint-root", str(tmp / "ck_plan"), "--run-timestamp", "smoke"])
+    plan_line = next(line for line in plan.getvalue().splitlines() if line.startswith("[ranks]"))
+    want_plan = f"[ranks] {min(n_gpus, SCALE_RANKS)}"
+    if not plan_line.startswith(want_plan):
+        raise AssertionError(f"train-unet --num-devices {SCALE_RANKS} on {n_gpus} GPUs: "
+                             f"{plan_line}")
+    print(f"scale-out: {n_gpus} GPU(s); adipose-torch train-unet --num-devices {SCALE_RANKS} "
+          f"plans {plan_line[8:]!r} (the JAX planner caps at the visible devices); the "
+          f"phase's own spawn: {SCALE_RANKS} ranks over {backend}"
+          f"{' sharing the card' if backend == 'gloo' else ', one GPU each'}; the halo "
+          f"exchange is an all-gather of boundary rows (no send/recv) [{smi}]")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(scale_out_rank, SCALE_RANKS,
+                        (str(tmp), str(data), str(tmp / "cls_data"), str(seg_run)), backend,
+                        timeout_s=300.0)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    steps = 2 * math.ceil(TRAIN_TILES / TRAIN_BATCH)
+    val_batches = 2 * math.ceil(VAL_TILES / TRAIN_BATCH)
+    want_train = train_counts(steps, val_batches, fast_head=False)
+    for r in ranks:
+        if r["train"][0] != want_train:
+            raise AssertionError(f"rank {r['rank']} training launches {r['train'][0]}, "
+                                 f"want {want_train}")
+    rows = r0["train_rows"]
+    print(f"scale-out train: UNetTrainer's rank code at the train-unet defaults (init_nb "
+          f"{INIT_NB}, {SIZE}^2, global batch {TRAIN_BATCH}, bf16, deep supervision, OHEM, "
+          f"EMA, cosine, moderate, percentile), 1 + 1 epochs on {TRAIN_TILES} + {VAL_TILES} "
+          f"tiles over {SCALE_RANKS} ranks ({', '.join(r['device'] for r in ranks)}; rows "
+          f"{[r['train'][2] for r in ranks]}): {max(r['train'][1] for r in ranks):.2f} s; "
+          f"launches per rank {[r['train'][0] for r in ranks]}; artifacts complete (rank 0), "
+          f"phase 1 left the encoder bit-unchanged; phase 2 loss {rows[2]['loss']:.4f} val "
+          f"dice {rows[2]['val_dice_coef']:.4f} [{smi}]")
+
+    results = {}
+    for fast_head in (False, True):
+        loss, loss1, leaf, worst, counts = r0[f"step_fast{fast_head}"]
+        heads = 3 if fast_head else 0
+        want = {"diff_sigmoid_head": heads, "diff_sigmoid_head_backward": heads,
+                "d4_transform_batch": 2, "percentile_normalize_u8": 1}
+        for r in ranks:
+            got = r[f"step_fast{fast_head}"][4]
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"rank {r['rank']} first step launches {got}, want {want}")
+        err = abs(loss - loss1)
+        if not (math.isfinite(loss) and err <= SCALE_LOSS_ATOL and worst <= SCALE_GRAD_RTOL):
+            raise AssertionError(f"2-rank first step (fast head {fast_head}) vs 1 rank: loss "
+                                 f"{loss} vs {loss1}, worst grad {leaf} {worst}")
+        results[f"step_fast{fast_head}"] = (err, worst)
+        print(f"scale-out first step, {'fast' if fast_head else 'softmax'} head: {SCALE_RANKS} "
+              f"ranks vs 1 rank from the same params, tiles and draws: loss {loss:.6f} vs "
+              f"{loss1:.6f} (|d| {err:.3g}, bound {SCALE_LOSS_ATOL}), worst grad leaf {leaf} "
+              f"{worst:.3g} of its max (bound {SCALE_GRAD_RTOL}; deterministic cuDNN); "
+              f"launches per rank {[r[f'step_fast{fast_head}'][4] for r in ranks]}")
+
+    steps, val_batches = 2 * math.ceil(CLS_TRAIN_TILES / CLS_BATCH), \
+        2 * math.ceil(CLS_VAL_TILES / CLS_BATCH)
+    for r in ranks:
+        if r["cls_train"][0] != cls_counts(steps, val_batches) or \
+                r["cls_step"][4] != cls_counts(1, 0):
+            raise AssertionError(f"rank {r['rank']} classifier launches {r['cls_train'][0]}, "
+                                 f"first step {r['cls_step'][4]}")
+    crow = r0["cls_row"]
+    print(f"scale-out classifier: ClassifierTrainer's rank code at the train-classifier "
+          f"defaults (global batch {CLS_BATCH}, {CLS_BATCH // SCALE_RANKS} a rank, bf16) from "
+          f"seeded pretrained weights, 1 + 1 epochs on {CLS_TRAIN_TILES} + {CLS_VAL_TILES} "
+          f"tiles: {max(r['cls_train'][1] for r in ranks):.2f} s; launches per rank "
+          f"{[r['cls_train'][0] for r in ranks]}; artifacts complete (rank 0); phase 2 loss "
+          f"{crow['loss']:.4f} val AUC {crow['val_auc']:.4f} [{smi}]")
+    closs, closs1, cleaf, cworst, _, n_leaves, coverall, floor = r0["cls_step"]
+    cerr = abs(closs - closs1)
+    if not (math.isfinite(closs) and cerr <= CLS_SCALE_LOSS_ATOL and cworst <= CLS_SCALE_LEAF_RTOL
+            and coverall <= CLS_SCALE_GRAD_RTOL):
+        raise AssertionError(f"2-rank classifier step vs 1 rank: loss {closs} vs {closs1}, "
+                             f"worst grad {cleaf} {cworst}, over all leaves {coverall}")
+    print(f"scale-out classifier: the first phase-2 step in float32 at batch {CLS_BATCH} "
+          f"({CLS_BATCH // SCALE_RANKS} a rank; BatchNorm above mixed7 on the global batch's "
+          f"moments, the global dropout mask) vs 1 rank: loss {closs:.7f} vs {closs1:.7f} "
+          f"(|d| {cerr:.3g}, bound {CLS_SCALE_LOSS_ATOL}), {n_leaves} grad leaves, worst "
+          f"{cleaf} {cworst:.3g} of its max (bound {CLS_SCALE_LEAF_RTOL}), {coverall:.3g} of the "
+          f"step's max |g| over all leaves (bound {CLS_SCALE_GRAD_RTOL}); the 1-rank step with "
+          f"cuDNN's own algorithms against it: worst {floor[0]} {floor[1]:.3g}; launches per rank "
+          f"{[r['cls_step'][4] for r in ranks]}")
+
+    gaps = r0["spatial_gaps"]
+    for r in ranks:
+        if r["spatial"][0]["diff_sigmoid_head"] != 2:
+            raise AssertionError(f"rank {r['rank']} spatial predict launches {r['spatial'][0]}")
+    f32, bf16 = gaps[str(torch.float32)], gaps[str(torch.bfloat16)]
+    if not (f32[2] and bf16[2] and f32[0] <= SPATIAL_F32_ATOL and bf16[0] <= SPATIAL_BF16_ATOL):
+        raise AssertionError(f"spatial predict vs one device: f32 {f32}, bf16 {bf16}")
+    print(f"scale-out spatial predict: spatial_unet_predict of {SPATIAL_BATCH} x {SIZE}^2 "
+          f"init_nb {INIT_NB} over {SCALE_RANKS} ranks (slabs of {SIZE // SCALE_RANKS} rows; "
+          f"kernel B once a predict on each slab) vs DilatedUNet on one device: f32 max "
+          f"{f32[0]:.3g} mean {f32[1]:.3g} (bound {SPATIAL_F32_ATOL}), bf16 max {bf16[0]:.3g} "
+          f"mean {bf16[1]:.3g} (bound {SPATIAL_BF16_ATOL}); bf16 "
+          f"{max(r['spatial'][1] for r in ranks):.2f} ms a predict on the ranks vs "
+          f"{gaps['one_device_bf16_ms']:.2f} ms on one device (CUDA events; {backend}"
+          f"{', two ranks on one card' if backend == 'gloo' else ''}); launches per rank "
+          f"{[r['spatial'][0] for r in ranks]} [{smi}]")
+
+    # remat on this process: plain, remat_level1, remat at batch 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    imgs = torch.randint(0, 256, (REMAT_BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev,
+                         generator=g)
+    masks = (torch.rand((REMAT_BATCH, SIZE, SIZE), device=dev, generator=g) > 0.6).to(torch.uint8)
+    torch.backends.cudnn.deterministic = True
+    try:
+        remat = {name: remat_step(dev, kw, imgs, masks) for name, kw in (
+            ("plain", {}), ("plain again", {}), ("remat_level1", {"remat_level1": True}),
+            ("remat", {"remat": True}))}
+        # with the aux heads, the plain step against itself
+        ds = [remat_step(dev, {}, imgs, masks, deep_supervision=True)["grads"] for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ds_differ, ds_leaves = sum(not torch.equal(ds[0][k], ds[1][k]) for k in ds[0]), len(ds[0])
+    del ds
+    plain = remat["plain"]
+    for name in ("plain again", "remat_level1", "remat"):
+        r = remat[name]
+        differ = [k for k in plain["grads"]
+                  if not torch.equal(plain["grads"][k], r["grads"][k])]
+        if differ or r["loss"] != plain["loss"] or not torch.equal(r["gen"], plain["gen"]):
+            raise AssertionError(f"{name}: loss {r['loss']} vs {plain['loss']}, grads differ "
+                                 f"at {len(differ)} leaves {differ[:4]}, generator equal "
+                                 f"{torch.equal(r['gen'], plain['gen'])}")
+    want_b = {"plain": 1, "plain again": 1, "remat_level1": 2, "remat": 1}
+    for name, r in remat.items():
+        if r["launches"]["diff_sigmoid_head"] != want_b[name] or \
+                r["launches"]["diff_sigmoid_head_backward"] != 1:
+            raise AssertionError(f"{name} launches {r['launches']}")
+    print(f"scale-out remat: one train step at batch {REMAT_BATCH}, {SIZE}^2, init_nb "
+          f"{INIT_NB}, bf16, fast head, dropout, moderate, OHEM; deterministic cuDNN: "
+          f"gradients and loss bit-equal to the plain step (and the plain step to itself), "
+          f"generator in the same state; " + "; ".join(
+              f"{name} {r['ms']:.2f} ms, peak {r['peak_gb']:.2f} GB, B "
+              f"{r['launches']['diff_sigmoid_head']} B' "
+              f"{r['launches']['diff_sigmoid_head_backward']}" for name, r in remat.items())
+          + f" (CUDA events); with the aux heads, two plain steps differ at {ds_differ} of "
+          f"{ds_leaves} gradient leaves [{smi}]")
+    print(f"scale-out: phase {time.perf_counter() - t_phase:.1f} s, of it the ranks' spawn "
+          f"{spawn_s:.1f} s")
+    # the path's launches: rank 0's, training and the steps and the predicts
+    path = {k: 0 for k in KERNELS}
+    for key in ("step_fastFalse", "step_fastTrue"):
+        for k, v in r0[key][4].items():
+            path[k] += v
+    for counts in (r0["train"][0], r0["cls_train"][0], r0["cls_step"][4], r0["spatial"][0]):
+        for k, v in counts.items():
+            path[k] += v
+    return {"launches": path, "remat": {k: (v["ms"], v["peak_gb"]) for k, v in remat.items()}}
+
+
 # The path whose run gives each kernel's "launches": the newest that runs it.
 MAIN_PATH = {"fused_zscore_normalize": "serving", "diff_sigmoid_head": "serving",
              "percentile_normalize_u8": "serving_classify",
@@ -3539,6 +3936,8 @@ def main() -> int:
         paths |= phase_stain_analysis(dev, Path(tmp), smi)
         torch.cuda.empty_cache()
         paths |= phase_serving(dev, Path(tmp), run, cls["run"], smi)
+        torch.cuda.empty_cache()
+        paths["scale_out"] = phase_scale_out(dev, Path(tmp), data, run, smi)["launches"]
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

@@ -386,14 +386,13 @@ def test_merge_matching_takes_matching_leaves_only():
     assert got["params"]["a"]["kernel"].sum() == 9 and got["params"]["a"]["bias"].sum() == 0
 
 
-def test_trainer_raises_not_ported_knobs(tmp_path):
+def test_trainer_raises_on_shard_spatial(tmp_path):
+    """Spatially sharded training is the one knob not ported yet; several
+    devices and remat are (tests/test_torch_train_parallel.py)."""
     root = _write_dataset(tmp_path, 16, 2, 1)
-    for cfg, mcfg in ((TrainConfig(num_devices=4), UNetConfig()),
-                      (TrainConfig(shard_spatial=True), UNetConfig()),
-                      (TrainConfig(), UNetConfig(remat=True)),
-                      (TrainConfig(), UNetConfig(remat_level1=True))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            UNetTrainer(root, cfg, mcfg, checkpoint_root=tmp_path / "ck", device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        UNetTrainer(root, TrainConfig(shard_spatial=True), UNetConfig(),
+                    checkpoint_root=tmp_path / "ck", device="cpu")
 
 
 # ---- adipose-torch train-unet ----------------------------------------------

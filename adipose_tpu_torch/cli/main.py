@@ -794,7 +794,7 @@ def _add_train_classifier(sub) -> None:
     tc.add_argument("--val-split", default="val")
     tc.add_argument("--pretrained-weights", default=None,
                     help="by-name transfer from a run or weights dir holding params.npz "
-                         "(train_adipose_classifier_v0.py:322-353; a TF .h5 is not ported yet)")
+                         "(train_adipose_classifier_v0.py:322-353), or a TF .h5")
     tc.add_argument("--warmup-epochs", type=int, default=6)
     tc.add_argument("--finetune-epochs", type=int, default=20)
     tc.add_argument("--batch-size", type=int, default=32)
@@ -834,7 +834,7 @@ def _add_train_unet(sub) -> None:
     t.add_argument("--data-root", required=True)
     t.add_argument("--pretrained-weights", default=None,
                    help="by-name weight transfer before phase 1 from a run or weights dir "
-                        "holding params.npz (a TF .h5 is not ported yet)")
+                        "holding params.npz, or a TF .h5 / .weights.h5")
     t.add_argument("--epochs-phase1", type=int, default=75)
     t.add_argument("--epochs-phase2", type=int, default=150)
     t.add_argument("--batch-size", type=int, default=2)
@@ -898,8 +898,9 @@ def _add_train_unet(sub) -> None:
                         "cpu, that many gloo ranks on the CPU, 0 meaning one process); "
                         "under torchrun the launcher's ranks")
     t.add_argument("--shard-spatial", action="store_true",
-                   help="(not ported yet: spatially sharded training is the next scale-out "
-                        "slice)")
+                   help="shard image rows over leftover devices when the batch is smaller "
+                        "than the device count (the ranks of a data x model plan; each "
+                        "rank holds a slab of every tile's rows)")
     t.add_argument("--device", default="cuda",
                    help="torch device; on 'cpu' the kernels' plain versions run")
     t.set_defaults(func=cmd_train_unet)
@@ -1059,24 +1060,30 @@ def cmd_pipeline(args) -> None:
         raise SystemExit("pipeline requires --wsi or --wsi-dir")
 
 
-def _plan_ranks(device: str, batch_size: int, num_devices: int) -> int:
-    """The JAX planner's data axis for the batch (``make_mesh_for_batch``):
-    over the visible GPUs for a CUDA device; on the CPU over
-    ``num_devices`` gloo ranks (0: one process)."""
-    from adipose_tpu_torch.parallel.mesh import make_mesh_for_batch
+def _plan(device: str, batch_size: int, num_devices: int, shard_spatial: bool = False):
+    """The JAX planner's plan for the batch: ``make_mesh_for_batch``, or
+    ``make_mesh_spatial`` over the default tile size (``UNetConfig``, as
+    the JAX CLI plans it) with ``shard_spatial``; over the visible GPUs
+    for a CUDA device, on the CPU over ``num_devices`` gloo ranks (0: one
+    process)."""
+    from adipose_tpu_torch.core.config import UNetConfig
+    from adipose_tpu_torch.parallel.mesh import make_mesh_for_batch, make_mesh_spatial
 
-    count = (torch.cuda.device_count() if torch.device(device).type == "cuda"
-             else max(num_devices, 1))
-    return make_mesh_for_batch(batch_size, num_devices, max(count, 1)).size
+    count = max(torch.cuda.device_count() if torch.device(device).type == "cuda"
+                else max(num_devices, 1), 1)
+    if shard_spatial:
+        return make_mesh_spatial(batch_size, num_devices, UNetConfig().tile_size, count)
+    return make_mesh_for_batch(batch_size, num_devices, count)
 
 
-def _launch_ranks(rank_fn, args, batch_size: int, num_devices: int):
+def _launch_ranks(rank_fn, args, batch_size: int, num_devices: int,
+                  shard_spatial: bool = False):
     """Run ``rank_fn(rank, args)`` on every rank of the plan; rank 0's result.
 
     Under a launcher (torchrun) this process joins its group as one rank.
-    Otherwise the ranks follow :func:`_plan_ranks`: one rank runs here, more
-    are spawned (NCCL on CUDA, gloo on the CPU; a rendezvous on 127.0.0.1 at
-    a free port), and a failing rank fails the command."""
+    Otherwise the ranks follow :func:`_plan`: one rank runs here, more are
+    spawned (NCCL on CUDA, gloo on the CPU; they meet at a file store in the
+    spawn's temporary directory), and a failing rank fails the command."""
     from adipose_tpu_torch.parallel.multihost import (initialize_multihost,
                                                       launched_world_size, process_index,
                                                       spawn_ranks)
@@ -1085,8 +1092,10 @@ def _launch_ranks(rank_fn, args, batch_size: int, num_devices: int):
     if launched_world_size() > 1:
         initialize_multihost(backend="nccl" if cuda else "gloo")
         return rank_fn(process_index(), args)
-    n = _plan_ranks(args.device, batch_size, num_devices)
-    print(f"[ranks] {n} of batch {batch_size} ({'NCCL, one GPU each' if cuda else 'gloo'})"
+    plan = _plan(args.device, batch_size, num_devices, shard_spatial)
+    n = plan.size
+    print(f"[ranks] {n} of batch {batch_size} as data {plan.data} x model {plan.model} "
+          f"({'NCCL, one GPU each' if cuda else 'gloo'})"
           if n > 1 else f"[ranks] 1 process for batch {batch_size}")
     if n == 1:
         return rank_fn(0, args)
@@ -1105,7 +1114,8 @@ def _rank_device(args) -> str:
 
 
 def cmd_train_unet(args) -> dict:
-    return _launch_ranks(_train_unet_rank, args, args.batch_size, args.num_devices)
+    return _launch_ranks(_train_unet_rank, args, args.batch_size, args.num_devices,
+                         args.shard_spatial)
 
 
 def _train_unet_rank(rank: int, args) -> dict:

@@ -41,7 +41,7 @@ class UNetConfig(_JsonMixin):
     dilation_rates: tuple = (1, 2, 4, 8, 16, 32)
     compute_dtype: str = "bfloat16"  # params stay float32
     # Rematerialization of every stage / of the level-1 stages: the JAX
-    # package's knobs; the port's trainer raises "not ported yet" on either.
+    # package's regions, recomputed in the backward (torch.utils.checkpoint).
     remat: bool = False
     remat_level1: bool = False
     # The sigmoid(logit difference) head through the head kernel and its
@@ -99,7 +99,9 @@ class TrainConfig(_JsonMixin):
     cache_limit_mb: int = 4096
     # Early stopping
     early_stopping_patience: int = 15
-    # Mesh: more than one device and spatial sharding are not ported yet.
+    # Devices, one process each (the CLI or torchrun starts them), and
+    # spatial sharding of each tile's rows over the devices the batch
+    # leaves idle (the make_mesh_spatial plan).
     num_devices: int = 0  # 0 = all available
     shard_spatial: bool = False
     seed: int = 865

@@ -9,17 +9,25 @@ or without TTA), Gaussian, linear or no blending ('none' averages as
 'linear' does).
 
 An image smaller than the tile is reflect-padded up to the tile and the
-map cropped back. One device only: the JAX package's ``mesh`` is not
-ported (more devices are data parallelism, ROADMAP Queue 1 item 8).
+map cropped back.
+
+``group`` (a ``torch.distributed`` process group, the counterpart of the
+JAX package's ``mesh``) spreads one image's tile stream over its ranks:
+each rank predicts its equal share of every batch, the shares are
+all-gathered, and every rank blends the same map. The batch rounds down to
+a multiple of the ranks, at least one tile each, as the JAX package rounds
+it to the mesh's data axis.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adipose_tpu_torch.ops.blend import (blend_tiles, extract_tiles, gaussian_weight_map,
                                          sliding_window_positions)
+from adipose_tpu_torch.parallel.collectives import all_gather_tensors
 
 
 def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
@@ -35,13 +43,19 @@ class SlidingWindowInference:
     def __init__(self, tile_size: int = 1024, overlap: float = 0.5,
                  blend_mode: str = "gaussian", batch_size: int = 8,
                  sigma_factor: float = 0.25, transfer_dtype: str = "float32",
-                 device="cuda"):
+                 device="cuda", group=None):
         """``transfer_dtype`` 'float16' quantizes the blended map once, on the
-        device, and halves its download."""
+        device, and halves its download. ``group``: the ranks that share
+        the tile stream (see the module's docstring); every rank of it
+        calls :meth:`predict` with the same image."""
         self.tile_size = tile_size
         self.overlap = max(0.0, min(overlap, 0.75))
         self.stride = int(tile_size * (1 - self.overlap))
         self.blend_mode = blend_mode
+        self.group = group
+        if group is not None:
+            n = dist.get_world_size(group)
+            batch_size = max(batch_size, n) // n * n  # a multiple of the ranks
         self.batch_size = batch_size
         self.transfer_dtype = transfer_dtype
         self.device = torch.device(device)
@@ -50,6 +64,16 @@ class SlidingWindowInference:
         else:
             self.weight_map = torch.ones((tile_size, tile_size), dtype=torch.float32,
                                          device=self.device)
+
+    def _predict_batch(self, predict_fn, params, chunk: torch.Tensor) -> torch.Tensor:
+        """``predict_fn`` of a batch; under ``group`` each rank predicts its
+        share and the shares are all-gathered in rank order."""
+        if self.group is None:
+            return predict_fn(params, chunk)
+        share = chunk.shape[0] // dist.get_world_size(self.group)
+        start = dist.get_rank(self.group) * share
+        mine = predict_fn(params, chunk[start:start + share].contiguous())
+        return torch.cat(all_gather_tensors(mine, self.group))
 
     def predict(self, predict_fn, params, image) -> np.ndarray:
         """The (H, W) float32 probability map of an (H, W) image.
@@ -76,7 +100,7 @@ class SlidingWindowInference:
             n = chunk.shape[0]
             if n < b:  # a fixed batch, as the JAX package compiles one program
                 chunk = torch.cat([chunk, chunk[-1:].expand(b - n, -1, -1)])
-            preds.append(predict_fn(params, chunk)[:n])
+            preds.append(self._predict_batch(predict_fn, params, chunk)[:n])
         full = blend_tiles(torch.cat(preds), positions, self.weight_map, ph, pw)
         if self.transfer_dtype == "float16":
             full = full.to(torch.float16)

@@ -41,6 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from adipose_tpu_torch.ops.cuda.unet_kernels import diff_sigmoid_head
+from adipose_tpu_torch.parallel.collectives import gather_rows
+from adipose_tpu_torch.parallel.spatial import halo_exchange, spatial_max_pool2
 
 _CL = torch.channels_last
 # Flax's lecun_normal: truncated normal on [-2, 2] std, rescaled so the
@@ -75,10 +77,12 @@ class Conv(nn.Module):
             lecun_normal_(self.weight, generator)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_h: bool = False) -> torch.Tensor:
+        """SAME, or with ``valid_h`` SAME on W and VALID on H: the rows of
+        a slab padded with its neighbours' rows (a halo)."""
         w = self.weight.to(x.dtype, memory_format=_CL)
-        return F.conv2d(x, w, self.bias.to(x.dtype), padding=self.padding,
-                        dilation=self.dilation)
+        padding = (0, self.padding) if valid_h else self.padding
+        return F.conv2d(x, w, self.bias.to(x.dtype), padding=padding, dilation=self.dilation)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -99,6 +103,13 @@ class FusedUpsampleConv(Conv):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(upsample_nearest_2x(x))
+
+    def forward_slab(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The same on an H slab of ``group``: upsample the slab padded with
+        one row of each neighbour, keep one upsampled row a side (zeros at
+        the image's edges, as the global padding), VALID on H."""
+        y = upsample_nearest_2x(halo_exchange(x, 1, group))[..., 1:-1, :]
+        return super().forward(y, valid_h=True)
 
 
 def sigmoid_head(conv: Conv, x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +144,24 @@ class DilatedUNet(nn.Module):
     the global batch's masks and keeps those rows, so several processes
     together draw what one process draws for the whole batch.
 
+    ``spatial`` (a :class:`~adipose_tpu_torch.parallel.multihost.SlabShard`)
+    makes the forward spatially sharded: its input is this process's H slab
+    of each tile, and it returns the outputs over the whole tile, on every
+    process of ``spatial.group``; the spatial predict
+    (:mod:`adipose_tpu_torch.parallel.spatial_unet`) runs it too. Levels 1-2
+    on the slab with a 1-row halo a conv, the /4 maps gathered, level 3, the
+    bottleneck and up3 replicated, up2 re-sharded by a slice, up1's fused
+    upsample-conv on a halo, the heads on the slabs. Gradients follow
+    :mod:`adipose_tpu_torch.parallel.collectives`: each process's parameter
+    gradients are its slab's share, summed over the processes. So every
+    gradient that enters the replicated part is this slab's share only: the
+    /4 gather sums its ranks' gradients, and ``aux_out1``, computed on the
+    replicated part, is sliced to the slab before it is gathered. The
+    ``aux_out2`` map is gathered at /2 and resized whole (the resize clamps
+    at the image's edges, not at a halo). Dropout draws every keep-mask for
+    the global tensor, in the plain order, and keeps the slab's rows at the
+    sharded levels (up2, up1). Slab heights must divide by 4.
+
     Params are allocated uninitialized: call :meth:`init_params` or load a
     state dict.
     """
@@ -155,6 +184,7 @@ class DilatedUNet(nn.Module):
         self.remat_level1 = remat_level1
         self.remat_level1_prevent_cse = remat_level1_prevent_cse
         self.batch_shard = None
+        self.spatial = None
 
         def conv(name, cin, cout, k=3, dilation=1, cls=Conv):
             setattr(self, name, cls(cin, cout, k, dilation, device=device))
@@ -185,22 +215,27 @@ class DilatedUNet(nn.Module):
         return self
 
     def _keep_mask(self, shape: torch.Size, generator: torch.Generator | None,
-                   device) -> torch.Tensor | None:
+                   device, sharded: bool = False) -> torch.Tensor | None:
         """The dropout keep-mask (``uniform < 1 - rate``) of a (B, C, H, W)
         activation, its uniforms drawn as (B, H, W, C) so the mask shares the
         activation's channels-last layout (with ``batch_shard``: the global
-        batch's, sliced to this process's rows); None outside training or at
-        rate 0."""
+        batch's, sliced to this process's rows; of a ``sharded`` activation
+        under ``spatial``: the whole tile's, sliced to the slab's rows); None
+        outside training or at rate 0."""
         if not self.training or self.dropout_rate == 0.0:
             return None
         if generator is None:
             raise ValueError("DilatedUNet in training mode needs a generator for dropout")
         b, c, h, w = shape
         shard = self.batch_shard
-        u = torch.rand((b if shard is None else shard.total, h, w, c), generator=generator,
-                       device=device)
+        slab = self.spatial if sharded else None
+        u = torch.rand((b if shard is None else shard.total,
+                        h if slab is None else h * slab.count, w, c),
+                       generator=generator, device=device)
         if shard is not None:
             u = shard.rows(u)
+        if slab is not None:
+            u = slab.rows(u, dim=1)
         return u.permute(0, 3, 1, 2) < 1.0 - self.dropout_rate
 
     def _apply_dropout(self, x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
@@ -209,16 +244,30 @@ class DilatedUNet(nn.Module):
         keep_prob = 1.0 - self.dropout_rate
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def _dropout(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: torch.Generator | None,
+                 sharded: bool = False) -> torch.Tensor:
         """Flax ``nn.Dropout``: keep where ``uniform < 1 - rate``, scaled by
         1 / (1 - rate); the identity outside training or at rate 0."""
-        return self._apply_dropout(x, self._keep_mask(x.shape, generator, x.device))
+        return self._apply_dropout(x, self._keep_mask(x.shape, generator, x.device, sharded))
 
     def _block(self, names: tuple[str, str], x: torch.Tensor) -> torch.Tensor:
         """An encoder ``_ConvBlock``: two Conv3x3-ReLU."""
         for name in names:
             x = F.relu(getattr(self, name)(x))
         return x
+
+    def _slab_block(self, names: tuple[str, str], x: torch.Tensor) -> torch.Tensor:
+        """The same on an H slab of ``spatial.group``: each conv VALID on H
+        over the slab padded with its neighbours' rows."""
+        for name in names:
+            conv = getattr(self, name)
+            x = F.relu(conv(halo_exchange(x, conv.padding, self.spatial.group), valid_h=True))
+        return x
+
+    def _sharded(self, level: int) -> bool:
+        """Whether decoder ``level`` runs on H slabs (``spatial``, levels
+        1-2)."""
+        return self.spatial is not None and level < 3
 
     @staticmethod
     def _region(remat: bool, fn, *args):
@@ -230,10 +279,18 @@ class DilatedUNet(nn.Module):
         return fn(*args)
 
     def _up_convs(self, level: int, skip: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        y = F.relu(getattr(self, f"up{level}_conv1")(y))
-        y = torch.cat([skip, y], dim=1)
-        y = F.relu(getattr(self, f"up{level}_conv2")(y))
-        return F.relu(getattr(self, f"up{level}_conv3")(y))
+        conv1 = getattr(self, f"up{level}_conv1")
+        names = (f"up{level}_conv2", f"up{level}_conv3")
+        if not self._sharded(level):
+            y = torch.cat([skip, F.relu(conv1(y))], dim=1)
+            return self._block(names, y)
+        slab = self.spatial
+        if level == 2:  # the replicated upsample-conv, re-sharded by a slice
+            y = slab.rows(F.relu(conv1(y)))
+        else:  # on the slab, with a 1-row halo
+            y = F.relu(conv1.forward_slab(y, slab.group))
+        y = torch.cat([skip, y], dim=1).contiguous(memory_format=_CL)
+        return self._slab_block(names, y)
 
     def _to_level1(self, x: torch.Tensor, generator: torch.Generator | None):
         """Everything before the level-1 tail: (down1, up2, up3) in the
@@ -241,12 +298,22 @@ class DilatedUNet(nn.Module):
         if x.dim() == 3:
             x = x.unsqueeze(1)
         x = x.to(self.compute_dtype).contiguous(memory_format=_CL)
-        down1 = self._region(self.remat or self.remat_level1, self._block,
+        slab = self.spatial
+        if slab is None:
+            block, pool = self._block, lambda t: F.max_pool2d(t, 2)
+        else:
+            if x.shape[-2] % 4:
+                raise ValueError(f"slab height {x.shape[-2]} must divide by 4: two pools run "
+                                 "on the slab")
+            block, pool = self._slab_block, spatial_max_pool2
+        down1 = self._region(self.remat or self.remat_level1, block,
                              ("down1_conv1", "down1_conv2"), x)
-        down2 = self._region(self.remat, self._block, ("down2_conv1", "down2_conv2"),
-                             F.max_pool2d(down1, 2))
-        down3 = self._region(self.remat, self._block, ("down3_conv1", "down3_conv2"),
-                             F.max_pool2d(down2, 2))
+        down2 = self._region(self.remat, block, ("down2_conv1", "down2_conv2"), pool(down1))
+        below = pool(down2)
+        if slab is not None:  # the /4 maps of the whole tile, on every slab's rank
+            below = gather_rows(below, -2, slab.group,
+                                sum_grads=True).contiguous(memory_format=_CL)
+        down3 = self._region(self.remat, self._block, ("down3_conv1", "down3_conv2"), below)
         d = F.max_pool2d(down3, 2)
         taps = []
         for i in range(len(self.dilation_rates)):
@@ -256,7 +323,7 @@ class DilatedUNet(nn.Module):
             taps.append(d)
         bottleneck = sum(taps)
         up3 = self._dropout(self._up_convs(3, down3, bottleneck), generator)
-        up2 = self._dropout(self._up_convs(2, down2, up3), generator)
+        up2 = self._dropout(self._up_convs(2, down2, up3), generator, self._sharded(2))
         return down1, up2, up3
 
     def _up1_keep(self, down1: torch.Tensor, generator: torch.Generator | None):
@@ -264,7 +331,8 @@ class DilatedUNet(nn.Module):
         order the plain path draws it), so a recompute of the tail reuses it
         and the generator advances once."""
         b, _, h, w = down1.shape
-        return self._keep_mask((b, self.init_nb, h, w), generator, down1.device)
+        return self._keep_mask((b, self.init_nb, h, w), generator, down1.device,
+                               self._sharded(1))
 
     def _up1(self, down1: torch.Tensor, up2: torch.Tensor, keep) -> torch.Tensor:
         return self._apply_dropout(self._up_convs(1, down1, up2), keep)
@@ -294,9 +362,13 @@ class DilatedUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         h, w = x.shape[-2:]
+        slab = self.spatial
         down1, up2, up3 = self._to_level1(x, generator)
         main = self._region(self.remat_level1, self._level1_tail, down1, up2,
                             self._up1_keep(down1, generator))
+        if slab is not None:
+            h *= slab.count
+            main = gather_rows(main, -2, slab.group)
         if not self.use_deep_supervision:
             return main
         up2, up3 = (t.contiguous(memory_format=_CL) for t in (up2, up3))
@@ -306,8 +378,12 @@ class DilatedUNet(nn.Module):
         else:
             aux1 = torch.sigmoid(self.aux_out1(up3).to(torch.float32))[:, 0]
             aux2 = torch.sigmoid(self.aux_out2(up2).to(torch.float32))[:, 0]
+        if slab is not None:
+            aux2 = gather_rows(aux2, -2, slab.group)
         aux1 = resize_bilinear(aux1[:, None], (h, w))[:, 0]
         aux2 = resize_bilinear(aux2[:, None], (h, w))[:, 0]
+        if slab is not None:  # the slab's share of the replicated head's gradient
+            aux1 = gather_rows(slab.rows(aux1).contiguous(), -2, slab.group)
         return {"main_out": main, "aux_out1": aux1, "aux_out2": aux2}
 
 

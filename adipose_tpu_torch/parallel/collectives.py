@@ -30,19 +30,31 @@ def all_gather_tensors(x: torch.Tensor, group) -> list[torch.Tensor]:
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, dim: int, group, sum_grads: bool) -> torch.Tensor:
         ctx.dim, ctx.rank, ctx.size = dim, dist.get_rank(group), x.shape[dim]
+        ctx.group, ctx.sum_grads = group, sum_grads
         return torch.cat(all_gather_tensors(x, group), dim=dim)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+        if ctx.sum_grads:  # a reduce-scatter: every rank's share of my rows
+            total = g.to(torch.float32).contiguous()
+            dist.all_reduce(total, group=ctx.group)
+            g = total.to(g.dtype)
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None, None
 
 
-def gather_rows(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, dim: int = 0, group=None,
+                sum_grads: bool = False) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order.
-    Differentiable: the backward keeps this rank's slice of the gradient."""
-    return _GatherRows.apply(x, dim, group)
+    Differentiable: the backward keeps this rank's slice of the gradient.
+
+    That is right where every rank computes the same loss from the gathered
+    tensor. Where each rank instead computes from it only its own share of
+    the loss (a replicated computation whose output each rank slices to its
+    rows), its gradient is that share alone: ``sum_grads`` then sums the
+    ranks' gradients (in float32) before keeping the slice, a reduce-scatter."""
+    return _GatherRows.apply(x, dim, group, sum_grads)
 
 
 class _AllReduceSum(torch.autograd.Function):

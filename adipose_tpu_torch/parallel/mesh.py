@@ -42,6 +42,54 @@ class MeshPlan:
     def data_index(self, rank: int) -> int:
         return rank // self.model
 
+    def model_index(self, rank: int) -> int:
+        return rank % self.model
+
+    def model_groups(self) -> list[list[int]]:
+        """The ranks that share a tile's rows, one group per data index: the
+        rows of :attr:`ranks`."""
+        return self.ranks.tolist()
+
+    def data_groups(self) -> list[list[int]]:
+        """The ranks that hold the same H slab across the batch, one group
+        per model index: the columns of :attr:`ranks`."""
+        return self.ranks.T.tolist()
+
+
+@dataclass(frozen=True)
+class RankGrid:
+    """This rank's place in a plan laid over the current process group: its
+    (data, model) indices and the process groups of its model axis (the
+    ranks that share its tiles' rows) and its data axis (the ranks that hold
+    its H slab across the batch). A group's ranks are in index order, so
+    the group rank of this process is its index on that axis."""
+
+    plan: MeshPlan
+    data_index: int
+    model_index: int
+    model_group: object
+    data_group: object
+
+
+def build_rank_grid(plan: MeshPlan) -> RankGrid:
+    """The subgroups of ``plan`` over the current process group, whose size
+    must be ``plan.size`` (the JAX package leaves surplus devices idle; here
+    the launcher starts exactly the plan's ranks). Every rank creates every
+    group, in the same order, the ones it is not in included: a rank that
+    skipped one would leave the others waiting in ``new_group``."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != plan.size:
+        raise ValueError(f"a ({plan.data}, {plan.model}) plan needs {plan.size} ranks; the "
+                         f"process group has {world}")
+    rank = dist.get_rank()
+    data_index, model_index = plan.data_index(rank), plan.model_index(rank)
+    model_groups = [dist.new_group(ranks) for ranks in plan.model_groups()]
+    data_groups = [dist.new_group(ranks) for ranks in plan.data_groups()]
+    return RankGrid(plan, data_index, model_index, model_groups[data_index],
+                    data_groups[model_index])
+
 
 def visible_devices() -> int:
     """The JAX package's ``len(jax.devices())``: the visible CUDA devices,

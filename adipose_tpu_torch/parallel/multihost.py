@@ -16,15 +16,16 @@ per device over ``torch.distributed``:
   * :class:`BatchShard` - which rows of a global batch a process holds, so a
     model draws its dropout masks for the global batch and keeps its rows,
     and a train-mode BatchNorm reduces its statistics over the group;
+  * :class:`SlabShard` - which row slab of each tile a process holds under
+    spatial sharding, and the group of the processes that hold the others;
   * :func:`spawn_ranks` - start the ranks without a launcher: one spawned
-    process each, with a rendezvous on 127.0.0.1 at a free port.
+    process each, meeting at a file store in the spawn's own directory.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-import socket
 import tempfile
 from dataclasses import dataclass
 from datetime import timedelta
@@ -156,19 +157,32 @@ class BatchShard:
         return t[self.start:self.start + self.size]
 
 
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@dataclass(frozen=True)
+class SlabShard:
+    """Slab ``index`` of ``count`` equal slabs of rows of each tile, held by
+    this process under spatial sharding; the processes that hold the
+    tile's slabs form ``group``, in slab order."""
+
+    index: int
+    count: int
+    group: object = None
+
+    def rows(self, t: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """This process's slab of ``t``, a tensor of whole tiles whose rows
+        are ``dim``."""
+        h = t.shape[dim]
+        if h % self.count:
+            raise ValueError(f"H {h} not divisible by {self.count} slabs")
+        size = h // self.count
+        return t.narrow(dim, self.index * size, size)
 
 
-def _rank_entry(rank: int, fn, world_size: int, port: int, backend: str, timeout_s: float,
-                out_dir: str, args: tuple) -> None:
+def _rank_entry(rank: int, fn, world_size: int, init_method: str, backend: str,
+                timeout_s: float, out_dir: str, args: tuple) -> None:
     os.environ["LOCAL_RANK"] = str(rank)
     if backend == "gloo" and not torch.cuda.is_available():
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
-    initialize_multihost(f"tcp://127.0.0.1:{port}", world_size, rank, backend, timeout_s)
+    initialize_multihost(init_method, world_size, rank, backend, timeout_s)
     try:
         result = fn(rank, *args)
         if rank == 0:
@@ -180,12 +194,14 @@ def _rank_entry(rank: int, fn, world_size: int, port: int, backend: str, timeout
 def spawn_ranks(fn, world_size: int, args: tuple = (), backend: str = "gloo",
                 timeout_s: float = DEFAULT_TIMEOUT_S):
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes joined in
-    one process group (``backend``; rendezvous at 127.0.0.1 on a free port;
-    ``timeout_s`` for the rendezvous and each collective). ``fn`` must be a
-    module-level function. Returns rank 0's return value; when a rank
-    fails, the others are stopped and its error is raised here."""
+    one process group (``backend``; ``timeout_s`` for the rendezvous and
+    each collective). The ranks meet at a file store in the spawn's own
+    temporary directory, so spawns started at once never race for a port.
+    ``fn`` must be a module-level function. Returns rank 0's return value;
+    when a rank fails, the others are stopped and its error is raised here."""
     with tempfile.TemporaryDirectory(prefix="adipose_ranks_") as out_dir:
+        init_method = Path(out_dir, "rendezvous").as_uri()
         torch.multiprocessing.start_processes(
-            _rank_entry, args=(fn, world_size, free_port(), backend, timeout_s, out_dir, args),
+            _rank_entry, args=(fn, world_size, init_method, backend, timeout_s, out_dir, args),
             nprocs=world_size, join=True, start_method="spawn")
         return pickle.loads(Path(out_dir, "result.pkl").read_bytes())

@@ -32,12 +32,23 @@ of the gradients (a sum) before the identical update on every rank. Rank 0
 alone writes the artifacts; the epoch's logged row is rank 0's on every
 rank, so plateau, early-stopping and EMA decisions agree.
 
+``shard_spatial`` (``--shard-spatial``) lays the ranks out as the JAX
+package's ``make_mesh_spatial`` plan over the tile size: the batch over
+the data axis, and the devices the batch leaves idle over the model axis,
+which cuts every tile's rows into slabs. Each rank decodes its data index's
+rows, augments and normalizes whole tiles (a D4 transform swaps H and W),
+takes its slab and runs the spatially sharded forward of
+:class:`~adipose_tpu_torch.models.unet.DilatedUNet` (``spatial``), whose
+outputs are whole tiles; the loss, Dice and OHEM's top-k are then the
+global batch's, as above, and the gradient shares are summed over every
+rank. A plan whose model axis is 1 is the data-parallel path.
+
 ``UNetConfig.remat``/``remat_level1`` recompute the JAX package's regions
-in the backward (:class:`~adipose_tpu_torch.models.unet.DilatedUNet`).
-Not ported yet (it raises): ``--shard-spatial`` training; the TPU
-compile-OOM retry ladder has no counterpart. ``--pretrained-weights`` takes
-a TF ``.h5`` through :mod:`adipose_tpu_torch.models.tf_import`, or a run's
-``params.npz``.
+in the backward (:class:`~adipose_tpu_torch.models.unet.DilatedUNet`), also
+under ``shard_spatial``, where a replay repeats its halo exchanges on every
+rank in the same order. The TPU compile-OOM retry ladder has no
+counterpart. ``--pretrained-weights`` takes a TF ``.h5`` through
+:mod:`adipose_tpu_torch.models.tf_import`, or a run's ``params.npz``.
 """
 
 from __future__ import annotations
@@ -60,8 +71,10 @@ from adipose_tpu_torch.ops import losses as L
 from adipose_tpu_torch.ops.metrics import activation_stats
 from adipose_tpu_torch.ops.normalize import batched_percentile_unit_fast
 from adipose_tpu_torch.parallel.collectives import all_reduce_grads_, gather_rows
-from adipose_tpu_torch.parallel.multihost import (BatchShard, barrier, broadcast_object,
-                                                  process_count, process_index)
+from adipose_tpu_torch.parallel.mesh import MeshPlan, build_rank_grid, make_mesh_spatial
+from adipose_tpu_torch.parallel.multihost import (BatchShard, SlabShard, barrier,
+                                                  broadcast_object, process_count,
+                                                  process_index)
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.ema import EmaTracker
 from adipose_tpu_torch.train.schedules import (EarlyStopping, ReduceLROnPlateau,
@@ -94,8 +107,9 @@ def normalize_images(images: torch.Tensor, norm_method: str, mean: torch.Tensor,
 def _global(out, masks, shard: BatchShard | None):
     """The global batch's outputs (a tensor or the deep-supervision dict)
     and masks from this rank's rows: an all-gather, differentiable for the
-    outputs. The rows themselves without a shard."""
-    if shard is None:
+    outputs. The rows themselves without a shard, or when they are the
+    whole batch."""
+    if shard is None or shard.size == shard.total:
         return out, masks
     if isinstance(out, dict):
         out = {k: gather_rows(v, 0, shard.group) for k, v in out.items()}
@@ -105,6 +119,12 @@ def _global(out, masks, shard: BatchShard | None):
         return out, gather_rows(masks, 0, shard.group)
 
 
+def _slab(model, images: torch.Tensor) -> torch.Tensor:
+    """This rank's slab of whole tiles under the model's ``spatial``; the
+    tiles themselves otherwise."""
+    return images if model.spatial is None else model.spatial.rows(images)
+
+
 def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_high: float,
                            shard: BatchShard | None = None):
     """``step(state, images, masks, generator, mean, std) -> metrics``:
@@ -112,20 +132,21 @@ def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_hig
     augmented float32 batch. ``generator`` draws the dropout masks; the
     metrics are device tensors. With ``shard`` the batch is this rank's rows:
     the loss and metrics are the global batch's and the gradients are summed
-    over the ranks before the update."""
+    over every rank before the update. Under the model's ``spatial`` the
+    forward takes the normalized tiles' slab."""
 
     def step(state: TrainState, images, masks, generator, mean, std):
         images = normalize_images(images.to(torch.float32), norm_method, mean, std,
                                   p_low, p_high)
         model.train()
-        out, masks = _global(model(images, generator=generator), masks.to(torch.float32),
-                             shard)
+        out, masks = _global(model(_slab(model, images), generator=generator),
+                             masks.to(torch.float32), shard)
         loss = loss_fn(masks, out)
         main = out["main_out"] if isinstance(out, dict) else out
         grads = torch.autograd.grad(loss, [state.params[k] for k in state.trainable],
                                     allow_unused=True)
         if shard is not None:
-            all_reduce_grads_(grads, shard.group)
+            all_reduce_grads_(grads)
         state.apply_gradients(grads)
         with torch.no_grad():
             return {"loss": loss.detach(), "dice_coef": L.dice_coef(masks, main.detach())}
@@ -144,7 +165,8 @@ def _make_val_step(model, loss_fn, norm_method: str, p_low: float, p_high: float
         with torch.inference_mode():
             images = normalize_images(images_u8.to(torch.float32), norm_method, mean, std,
                                       p_low, p_high)
-            out, masks = _global(model(images), masks_u8.to(torch.float32), shard)
+            out, masks = _global(model(_slab(model, images)), masks_u8.to(torch.float32),
+                                 shard)
             main = out["main_out"] if isinstance(out, dict) else out
             return {"loss": loss_fn(masks, out), "dice_coef": L.dice_coef(masks, main),
                     **activation_stats(main)}
@@ -197,13 +219,22 @@ class UNetTrainer:
         self.cfg = cfg or TrainConfig()
         self.model_cfg = model_cfg or UNetConfig()
         self.device = torch.device(device)
-        if self.cfg.shard_spatial:
-            raise NotImplementedError("train-unet --shard-spatial is not ported yet: "
-                                      "spatially sharded training is the next scale-out slice")
         # The ranks are the process group's (one process per device); one
         # process trains the whole batch on its device.
-        self.shard = (BatchShard.of_process(self.cfg.batch_size) if process_count() > 1
-                      else None)
+        # The --shard-spatial plan is the JAX planner's with the ranks as
+        # its devices.
+        world = process_count()
+        self.plan = (make_mesh_spatial(self.cfg.batch_size, world, self.model_cfg.tile_size,
+                                       world) if self.cfg.shard_spatial else MeshPlan(world))
+        slab = None
+        if self.plan.model > 1:
+            grid = build_rank_grid(self.plan)
+            size = self.cfg.batch_size // self.plan.data
+            self.shard = BatchShard(grid.data_index * size, size, self.cfg.batch_size,
+                                    grid.data_group)
+            slab = SlabShard(grid.model_index, self.plan.model, grid.model_group)
+        else:
+            self.shard = BatchShard.of_process(self.cfg.batch_size) if world > 1 else None
         self.is_main = process_index() == 0
         self.data_root = Path(data_root)
         self.ckpt_dir = ckpt.checkpoint_dir_for(
@@ -222,6 +253,7 @@ class UNetTrainer:
             device=self.device,
         )
         self.model.batch_shard = self.shard
+        self.model.spatial = slab
         self.loss_fn = unet_loss_from_config(self.cfg)
         self.history: list = []
 

@@ -25,7 +25,16 @@ Tiles reach both gates as uint8: the JAX package casts them to float32
 first, which gives equal results for integer values at a quarter of the
 bytes. Every device operation runs in order on the current CUDA stream;
 the host waits only where it needs a value (the QC/classify result, a
-finished stripe). Single device: the JAX package's mesh path is not carried.
+finished stripe).
+
+``group`` (a ``torch.distributed`` process group, the counterpart of the
+JAX package's ``mesh``) spreads a slide's tile stream over its ranks: every
+rank runs the same chunks, each QC, classify and segment batch is split
+into equal shares, one a rank, and the shares' results are all-gathered,
+so the verdicts, the counts and the probability map are the same on every
+rank. The batch rounds up to a multiple of the ranks, tiles are cut on the
+host, and the map is finalized once after the last batch (``striped``
+false), as the JAX package's mesh path does.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from pathlib import Path
 import cv2
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adipose_tpu_torch.ops.blend import (
     accumulate_predictions,
@@ -48,6 +58,7 @@ from adipose_tpu_torch.ops.blend import (
     sliding_window_positions,
 )
 from adipose_tpu_torch.ops.qc import classify_tiles_batch
+from adipose_tpu_torch.parallel.collectives import all_gather_tensors
 
 
 @dataclass
@@ -141,9 +152,12 @@ class DualModelWSIPipeline:
         transfer_dtype: str = "float16",  # 'float16' | 'float32' | 'uint8'
         device_tiling: bool = True,
         device="cuda",
+        group=None,
     ):
         """``device``: where the slide, both models and the canvases live;
-        the predict callables run on tensors on it."""
+        the predict callables run on tensors on it. ``group``: the ranks
+        that share the tile stream (see the module's docstring); every rank
+        of it runs the same chunks."""
         self.classifier_predict = classifier_predict
         self.classifier_variables = classifier_variables
         self.segmenter_predict = segmenter_predict
@@ -151,6 +165,10 @@ class DualModelWSIPipeline:
         self.tile_size = tile_size
         self.overlap = overlap
         self.classifier_threshold = classifier_threshold
+        self.group = group
+        if group is not None:
+            n = dist.get_world_size(group)
+            batch_size = -(-batch_size // n) * n  # rounded up to the ranks
         self.batch_size = batch_size
         self.qc_args = (white_threshold, white_ratio, blur_threshold)
         self.device = torch.device(device)
@@ -162,8 +180,9 @@ class DualModelWSIPipeline:
         # artifact, 1/255-step probability_map).
         self.transfer_dtype = transfer_dtype
         # Device tiling uploads the slide's bytes once; host tiling uploads
-        # every overlapping tile for QC/classify and the positive ones again.
-        self.device_tiling = device_tiling
+        # every overlapping tile for QC/classify and the positive ones again
+        # (under a group, each rank its share).
+        self.device_tiling = device_tiling and group is None
         # weight canvases by padded chunk shape, the 2 most recent: they
         # depend only on the shape, and each is one f32 canvas on the device
         self._wsum: dict = {}
@@ -224,6 +243,21 @@ class DualModelWSIPipeline:
     def _dispatch(self, image: np.ndarray, sync_segment: bool) -> _PendingRun:
         return self._plan_segment(self._dispatch_qc(image), sync_segment)
 
+    def _share(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's equal share of a batch's indices (all of them
+        without a group)."""
+        if self.group is None:
+            return idx
+        size = len(idx) // dist.get_world_size(self.group)
+        return idx[dist.get_rank(self.group) * size:][:size]
+
+    def _gathered(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's share of a batch's results, concatenated along
+        ``dim`` in rank order (``t`` itself without a group)."""
+        if self.group is None:
+            return t
+        return torch.cat(all_gather_tensors(t, self.group), dim=dim)
+
     def _tiles(self, slide_dev, tiles_host, positions, idx) -> torch.Tensor:
         if slide_dev is not None:
             return extract_tiles(slide_dev, positions[idx], self.tile_size)
@@ -256,10 +290,11 @@ class DualModelWSIPipeline:
         t0 = time.time()
         outs = []
         for idx, _ in self._chunk_indices(np.arange(len(positions))):
-            tiles = self._tiles(slide_dev, tiles_host, positions, idx)
+            tiles = self._tiles(slide_dev, tiles_host, positions, self._share(idx))
             good = classify_tiles_batch(tiles, *self.qc_args)["is_good"]
             prob = self.classifier_predict(self.classifier_variables, tiles)
-            outs.append(torch.stack([good.to(torch.float32), prob.to(torch.float32)]))
+            outs.append(self._gathered(
+                torch.stack([good.to(torch.float32), prob.to(torch.float32)]), 1))
         result = _HostCopy.start(torch.cat(outs, dim=1))
         timings["qc_classify_s"] = time.time() - t0
         return _PendingQC(gray_shape=gray.shape, h=h, w=w, n_tiles=len(positions),
@@ -311,7 +346,7 @@ class DualModelWSIPipeline:
         timings["blend_weights_s"] = time.time() - t0
 
         t0 = time.time()
-        timings["striped"] = True
+        timings["striped"] = self.group is None
         timings["pipelined"] = not sync_segment
         pos_idx = np.flatnonzero(positive)
         # Striped finalize: canvas stripe [y0, y0 + hs) receives
@@ -321,10 +356,13 @@ class DualModelWSIPipeline:
         # (the tile-row stride, starts clamped to the canvas): a clamped
         # stripe overlaps its predecessor and finalizes those rows to the
         # same values.
+        # Under a group the whole canvas is one stripe, final after the last
+        # batch.
         height = qc.gray_shape[0]
         ys = positions[:, 0]
         row_starts = np.unique(ys)
-        hs = int(row_starts[1] - row_starts[0]) if len(row_starts) > 1 else height
+        hs = (int(row_starts[1] - row_starts[0])
+              if len(row_starts) > 1 and self.group is None else height)
         y0s = np.unique(np.minimum(np.arange(0, height, hs), height - hs))
         need = np.ceil(np.searchsorted(ys[pos_idx], y0s + hs, side="left") / b).astype(int)
         stripes = []
@@ -340,8 +378,8 @@ class DualModelWSIPipeline:
 
         flush(0)
         for done, (idx, n) in enumerate(self._chunk_indices(pos_idx), start=1):
-            tiles = self._tiles(qc.slide_dev, qc.tiles_host, positions, idx)
-            seg = self.segmenter_predict(self.segmenter_params, tiles)
+            tiles = self._tiles(qc.slide_dev, qc.tiles_host, positions, self._share(idx))
+            seg = self._gathered(self.segmenter_predict(self.segmenter_params, tiles), 0)
             accumulate_predictions(acc, seg, positions[idx], self.weight_map, np.arange(b) < n)
             flush(done)
         # in pipelined mode the next chunk's work overlaps the device drain

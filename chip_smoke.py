@@ -2,8 +2,9 @@
 """Drive the PyTorch port's segment path, WSI cascade, evaluation, U-Net
 training, classifier training, classifier evaluation, dataset builds, WSI
 tools, WSI preparation tools, stain and analysis tools, serving export and
-TF weight import, scale-out over torch.distributed (two ranks), remat and the
-spatially sharded predict, and conv-chain layout probe once on one CUDA GPU
+TF weight import, scale-out over torch.distributed (two ranks), remat, the
+spatially sharded predict and training, tile-stream sharding of the sliding
+window and the cascade, and conv-chain layout probe once on one CUDA GPU
 and check its kernels.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
@@ -159,10 +160,20 @@ Phases, one line each or more; any failure raises and the script exits nonzero:
      defaults 1 + 1 epochs (P 6, D 4 a rank), its first phase-2 step in
      float32 against the 1-rank step; ``spatial_unet_predict`` of 16 x
      1024^2 over the ranks' slabs in float32 and bf16 against DilatedUNet on
-     one device (B once a predict on each slab); then, in this process, one
-     train step at batch 8 plain, with ``remat_level1`` and with ``remat``:
-     gradients bit-equal, the generator's state, B's launches, peak memory
-     and the step's time by CUDA events
+     one device (B once a predict on each slab); ``UNetTrainer`` with
+     ``shard_spatial`` at batch 1 (plan data 1 x model 2, a 512-row slab of
+     every tile a rank; fast head) 1 + 1 epochs (B 72, B' 48, D 32, P 24 a
+     rank), its first step with the softmax and the fast head in bf16 and
+     in float32 against the whole tile on 1 rank, one spatial step with
+     ``remat_level1`` bit-equal to the plain spatial step and the spatial
+     step's time against the 1-rank step's by CUDA events;
+     ``SlidingWindowInference(group=)`` (minimal TTA) and
+     ``DualModelWSIPipeline(group=)`` on phase 7's 3000 x 5000 chunk, each
+     rank half of every batch (A, B, D and P counted per rank), against
+     one process; then, in this process, one train step at batch 8 plain,
+     with ``remat_level1`` and with ``remat``: gradients bit-equal, the
+     generator's state, B's launches, peak memory and the step's time by
+     CUDA events
   9c. probe  the layout probe (``scripts/exp_layout_probe.py`` ported) at
      (16, 64, 1024, 1024) bf16 through its ``main``: I once per kernel-chain
      call; with cuDNN deterministic, the chain through I bit-equal to the
@@ -183,6 +194,7 @@ last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -238,6 +250,7 @@ from adipose_tpu_torch.train.trainer_classifier import (INCEPTION_SIZE, Classifi
 from adipose_tpu_torch.train.trainer_unet import (UNetTrainer, _make_fused_train_step,
                                                    _to_device, init_unet_params,
                                                    make_augment_step)
+from adipose_tpu_torch.ops.blend import sliding_window_positions
 from adipose_tpu_torch.wsi.pipeline import DualModelWSIPipeline
 
 SEED = 865
@@ -3539,6 +3552,25 @@ CLS_SCALE_GRAD_RTOL = 5e-3  # of the step's max |g| over all leaves
 # (the JAX package's test bounds the same gap at 5e-3).
 SPATIAL_F32_ATOL = 1e-5
 SPATIAL_BF16_ATOL = 5e-3
+# Spatially sharded training: batch 1 over the two ranks is the plan data 1 x
+# model 2 (batch 2 would be 2 x 1, the data-parallel path).
+SPATIAL_TRAIN_BATCH = 1
+# Its first steps against the 1-rank step of the whole tile from the same
+# params, tile and draws (bf16, deterministic cuDNN): phase 8's bounds. The
+# slabs' convs run on other shapes than the whole tile's, so cuDNN may pick
+# other algorithms and round otherwise, and the ranks' gradient shares are
+# summed in another order.
+SPATIAL_LOSS_ATOL = TRAIN_LOSS_ATOL
+SPATIAL_GRAD_RTOL = TRAIN_GRAD_RTOL
+# The same first step in float32 (TF32 off, softmax head): the CPU tests'
+# bounds against JAX, loss relative and each leaf against its max.
+SPATIAL_F32_LOSS_RTOL = 1e-5
+SPATIAL_F32_GRAD_RTOL = 1e-4
+# The sliding window and the cascade over the ranks against one process:
+# each rank predicts half of each batch, so cuDNN runs the bf16 convs at
+# another batch; the slice's bound for such a rounding.
+STREAM_ATOL = SLICE_ATOL
+STREAM_CHUNK = 2  # phase 7's seeded 3000 x 5000 chunk
 
 
 def worst_gap(got: dict, want: dict) -> tuple[str, float]:
@@ -3555,7 +3587,9 @@ def scale_out_rank(rank: int, tmp: str, data: str, cls_data: str, seg_run: str) 
     """What each rank of phase 9h runs, on its GPU (distinct GPUs) or on the
     shared card: the trainers' own rank code, each first step beside the
     1-rank step (rank 0), the spatial predict beside the one-device predict
-    (rank 0). Returns every rank's results (on rank 0)."""
+    (rank 0), spatially sharded training and its steps beside the 1-rank
+    step (rank 0), and the sliding window and the cascade over the ranks
+    beside one process (rank 0). Returns every rank's results (on rank 0)."""
     import torch.distributed as dist
 
     from adipose_tpu_torch.parallel.multihost import barrier
@@ -3679,20 +3713,155 @@ def scale_out_rank(rank: int, tmp: str, data: str, cls_data: str, seg_run: str) 
         out["spatial_gaps"] = gaps
     barrier()
     torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    out |= spatial_training_rank(rank, dev, tmp, data)
+    torch.cuda.empty_cache()
+    out |= tile_stream_rank(rank, dev, tmp, seg_run)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, out)
     return every
 
 
+def spatial_training_rank(rank: int, dev, tmp: Path, data: Path) -> dict:
+    """Phase 9h's spatially sharded training on this rank: ``UNetTrainer``
+    with ``shard_spatial`` at batch 1 (the plan data 1 x model 2), full
+    width with the fast head, 1 + 1 epochs; its first steps with the
+    softmax and the fast head against the 1-rank step (rank 0); one spatial
+    step with ``remat_level1`` against the plain spatial step (no aux
+    heads, deterministic cuDNN), and the spatial step's time by CUDA events
+    against the 1-rank step's (rank 0)."""
+    from adipose_tpu_torch.parallel.multihost import barrier
+
+    cfg = dataclasses.replace(CLI_TRAIN, batch_size=SPATIAL_TRAIN_BATCH, shard_spatial=True)
+    trainer = UNetTrainer(data, cfg, UNetConfig(use_deep_supervision=True, fast_head=True),
+                          checkpoint_root=tmp / "ck_spatial", build_timestamp="smoke",
+                          device=dev)
+    slab, shard = trainer.model.spatial, trainer.shard
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    out = {"sp_train": (launches(), time.perf_counter() - t0,
+                        (trainer.plan.data, trainer.plan.model), slab.index)}
+    barrier()
+    if rank == 0:
+        out["sp_train_rows"] = check_run(trainer.ckpt_dir, "spatially sharded training")
+
+    params = trainer.init_params()
+    imgs, masks = next(iter(trainer.train_data.epoch_batches(0, rows=trainer.rows)))
+    torch.backends.cudnn.deterministic = True
+    for fast_head in (False, True):
+        trainer.model.fast_head = fast_head
+        reset_launches()
+        loss, grads = first_step(trainer, params, imgs, masks, dev, shard)
+        counts, one = launches(), None
+        if rank == 0:  # the whole tile on this rank alone
+            trainer.model.spatial = trainer.model.batch_shard = None
+            loss1, grads1 = first_step(trainer, params, imgs, masks, dev)
+            trainer.model.spatial, trainer.model.batch_shard = slab, shard
+            one = (loss1, *worst_gap(grads, grads1))
+            del grads1
+        out[f"sp_step_fast{fast_head}"] = (loss, one, counts)
+        del grads
+        barrier()
+    trainer.model.fast_head, trainer.model.compute_dtype = False, torch.float32
+    loss, grads = first_step(trainer, params, imgs, masks, dev, shard)
+    if rank == 0:
+        trainer.model.spatial = trainer.model.batch_shard = None
+        loss1, grads1 = first_step(trainer, params, imgs, masks, dev)
+        out["sp_step_f32"] = (loss, loss1, *worst_gap(grads, grads1))
+        del grads1
+    del trainer, params, grads
+    barrier()
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    u8 = torch.randint(0, 256, (SPATIAL_TRAIN_BATCH, SIZE, SIZE), dtype=torch.uint8, device=dev,
+                       generator=g)
+    m8 = (torch.rand(u8.shape, device=dev, generator=g) > 0.6).to(torch.uint8)
+    steps = {name: remat_step(dev, kw, u8, m8, shard=shard, spatial=slab)
+             for name, kw in (("plain", {}), ("remat_level1", {"remat_level1": True}))}
+    plain, rl1 = steps["plain"], steps["remat_level1"]
+    differ = [k for k in plain["grads"] if not torch.equal(plain["grads"][k], rl1["grads"][k])]
+    out["sp_remat"] = ({k: (r["loss"], r["ms"], r["peak_gb"], r["launches"])
+                        for k, r in steps.items()},
+                       differ, torch.equal(plain["gen"], rl1["gen"]))
+    if rank == 0:
+        one = remat_step(dev, {}, u8, m8)
+        out["sp_one_step"] = (one["loss"], one["ms"], one["peak_gb"],
+                              *worst_gap(plain["grads"], one["grads"]))
+        del one
+    del steps, plain, rl1
+    barrier()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def tile_stream_rank(rank: int, dev, tmp: Path, seg_run: str) -> dict:
+    """Phase 9h's tile-stream sharding on this rank: the sliding window
+    (minimal TTA, batch 8) and the cascade (batch 16, classifier threshold
+    0) on phase 7's seeded 3000 x 5000 chunk with ``group`` the two ranks,
+    each rank predicting its half of every batch; then the same in one
+    process (rank 0). Deterministic cuDNN."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from adipose_tpu_torch.eval.sliding_window import SlidingWindowInference
+    from adipose_tpu_torch.eval.tta import make_tta_predict
+    from adipose_tpu_torch.parallel.multihost import barrier
+
+    seg_predict, seg_params, _, _ = _load_segmenter(Path(seg_run), device=dev)
+    cls_predict, cls_state = _load_classifier(tmp / "classifier", device=dev)
+    slide = DualModelWSIPipeline._read_image(tmp / "chunks" / f"chunk{STREAM_CHUNK}.png")
+    tta = make_tta_predict(seg_predict, "minimal")
+
+    def runs(group) -> tuple:
+        sw = SlidingWindowInference(tile_size=SIZE, overlap=0.5, batch_size=BATCH // 2,
+                                    device=dev, group=group)
+        pipe = DualModelWSIPipeline(cls_predict, cls_state, seg_predict, seg_params,
+                                    tile_size=SIZE, batch_size=BATCH, classifier_threshold=0.0,
+                                    transfer_dtype="float32", device=dev, group=group)
+        reset_launches()
+        t0 = time.perf_counter()
+        window = sw.predict(tta, seg_params, slide)
+        sw_s, sw_counts = time.perf_counter() - t0, launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        cascade = pipe.run(slide)
+        return window, cascade, sw_counts, launches(), sw_s, time.perf_counter() - t0
+
+    torch.backends.cudnn.deterministic = True
+    window, cascade, sw_counts, cascade_counts, sw_s, cascade_s = runs(dist.group.WORLD)
+    out = {"stream": (sw_counts, cascade_counts, sw_s, cascade_s,
+                      (cascade.n_tiles, cascade.n_good, cascade.n_positive),
+                      cascade.timings["striped"],
+                      hashlib.sha256(window.tobytes() + cascade.probability_map.tobytes())
+                      .hexdigest(), window.shape, bool(np.isfinite(window).all()))}
+    if rank == 0:
+        window1, cascade1, sw1, cas1, sw1_s, cas1_s = runs(None)
+        out["stream_one"] = (float(np.abs(window - window1).max()),
+                             float(np.abs(cascade.probability_map
+                                          - cascade1.probability_map).max()),
+                             (cascade1.n_tiles, cascade1.n_good, cascade1.n_positive),
+                             sw1, cas1, sw1_s, cas1_s)
+    barrier()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
 def remat_step(dev, model_kw: dict, imgs: torch.Tensor, masks: torch.Tensor,
-               deep_supervision: bool = False) -> dict:
+               deep_supervision: bool = False, shard=None, spatial=None) -> dict:
     """One fused U-Net step at init_nb 44 (fast head, dropout, moderate,
     percentile, OHEM; by default no deep supervision: the aux heads'
     bilinear resize has a backward of atomic adds) from the seeded init on
     the given u8 batch: loss, gradients, the generator's state after it,
-    launches, peak memory; then the step's time by CUDA events."""
+    launches, peak memory; then the step's time by CUDA events. With
+    ``shard`` and ``spatial`` the model is this rank's part of a spatially
+    sharded step (every rank of the group calls it alike)."""
     model = DilatedUNet(init_nb=INIT_NB, use_deep_supervision=deep_supervision, fast_head=True,
                         device=dev, **model_kw)
+    model.batch_shard, model.spatial = shard, spatial
     live = dict(model.named_parameters())
     with torch.no_grad():
         for k, v in init_unet_params(model, SEED).items():
@@ -3701,8 +3870,8 @@ def remat_step(dev, model_kw: dict, imgs: torch.Tensor, masks: torch.Tensor,
     grads: list = []
     state.apply_gradients = lambda g: grads.extend(t.float().clone() for t in g)
     step = _make_fused_train_step(model, unet_loss_from_config(CLI_TRAIN), "percentile", 1.0,
-                                  99.0)
-    augment = make_augment_step("moderate")
+                                  99.0, shard)
+    augment = make_augment_step("moderate", shard)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stat = torch.zeros((), device=dev)
     torch.cuda.synchronize()
@@ -3872,6 +4041,7 @@ def phase_scale_out(dev, tmp: Path, data: Path, seg_run: Path, smi: str) -> dict
               f"{r['launches']['diff_sigmoid_head_backward']}" for name, r in remat.items())
           + f" (CUDA events); with the aux heads, two plain steps differ at {ds_differ} of "
           f"{ds_leaves} gradient leaves [{smi}]")
+    spatial_paths = report_spatial_training(ranks, backend, smi)
     print(f"scale-out: phase {time.perf_counter() - t_phase:.1f} s, of it the ranks' spawn "
           f"{spawn_s:.1f} s")
     # the path's launches: rank 0's, training and the steps and the predicts
@@ -3882,7 +4052,128 @@ def phase_scale_out(dev, tmp: Path, data: Path, seg_run: Path, smi: str) -> dict
     for counts in (r0["train"][0], r0["cls_train"][0], r0["cls_step"][4], r0["spatial"][0]):
         for k, v in counts.items():
             path[k] += v
-    return {"launches": path, "remat": {k: (v["ms"], v["peak_gb"]) for k, v in remat.items()}}
+    return {"launches": path, "remat": {k: (v["ms"], v["peak_gb"]) for k, v in remat.items()},
+            **spatial_paths}
+
+
+def report_spatial_training(ranks: list, backend: str, smi: str) -> dict:
+    """Phase 9h's checks and lines for spatially sharded training and the
+    tile-stream sharding; the two paths' launches (rank 0's)."""
+    r0 = ranks[0]
+    sharing = " (two ranks share one card: host staging over gloo, not a speed-up)" \
+        if backend == "gloo" else ""
+    steps, val_batches = 2 * TRAIN_TILES, 2 * VAL_TILES  # batch 1
+    want = train_counts(steps, val_batches, fast_head=True)
+    for r in ranks:
+        counts, _, plan, slab = r["sp_train"]
+        if counts != want or plan != (1, SCALE_RANKS) or slab != r["rank"]:
+            raise AssertionError(f"rank {r['rank']} spatial training: launches {counts} (want "
+                                 f"{want}), plan {plan}, slab {slab}")
+    rows = r0["sp_train_rows"]
+    print(f"scale-out spatial train: UNetTrainer(shard_spatial) at batch "
+          f"{SPATIAL_TRAIN_BATCH}: plan data x model {r0['sp_train'][2]}, each rank a "
+          f"{SIZE // SCALE_RANKS}-row slab of every {SIZE}^2 tile (init_nb {INIT_NB}, bf16, deep "
+          f"supervision, fast head, OHEM, EMA, cosine, moderate, percentile), 1 + 1 epochs on "
+          f"{TRAIN_TILES} + {VAL_TILES} tiles: wall per rank "
+          f"{[round(r['sp_train'][1], 2) for r in ranks]} s; launches per rank "
+          f"{[r['sp_train'][0] for r in ranks]}; artifacts complete (rank 0), phase 1 left the "
+          f"encoder bit-unchanged; phase 2 loss {rows[2]['loss']:.4f} val dice "
+          f"{rows[2]['val_dice_coef']:.4f} [{smi}]")
+    for fast_head in (False, True):
+        loss, (loss1, leaf, worst), _ = r0[f"sp_step_fast{fast_head}"]
+        heads = 3 if fast_head else 0
+        want = {"diff_sigmoid_head": heads, "diff_sigmoid_head_backward": heads,
+                "d4_transform_batch": 2, "percentile_normalize_u8": 1}
+        for r in ranks:
+            got = r[f"sp_step_fast{fast_head}"][2]
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"rank {r['rank']} spatial first step launches {got}, "
+                                     f"want {want}")
+        err = abs(loss - loss1)
+        if not (math.isfinite(loss) and err <= SPATIAL_LOSS_ATOL and worst <= SPATIAL_GRAD_RTOL):
+            raise AssertionError(f"spatial first step (fast head {fast_head}) vs 1 rank: loss "
+                                 f"{loss} vs {loss1}, worst grad {leaf} {worst}")
+        print(f"scale-out spatial first step, {'fast' if fast_head else 'softmax'} head: the "
+              f"ranks' slabs vs the whole tile on 1 rank from the same params, tile and draws: "
+              f"loss {loss:.6f} vs {loss1:.6f} (|d| {err:.3g}, bound {SPATIAL_LOSS_ATOL}), worst "
+              f"grad leaf {leaf} {worst:.3g} of its max (bound {SPATIAL_GRAD_RTOL}; deterministic "
+              f"cuDNN, deep supervision); launches per rank "
+              f"{[r[f'sp_step_fast{fast_head}'][2] for r in ranks]}")
+    loss, loss1, leaf, worst = r0["sp_step_f32"]
+    rel = abs(loss - loss1) / abs(loss1)
+    if not (rel <= SPATIAL_F32_LOSS_RTOL and worst <= SPATIAL_F32_GRAD_RTOL):
+        raise AssertionError(f"spatial first step in float32 vs 1 rank: loss {loss} vs {loss1}, "
+                             f"worst grad {leaf} {worst}")
+    print(f"scale-out spatial first step in float32 (TF32 off, softmax head, deep supervision): "
+          f"loss {loss:.7f} vs {loss1:.7f} (rel {rel:.3g}, bound {SPATIAL_F32_LOSS_RTOL}), worst "
+          f"grad leaf {leaf} {worst:.3g} of its max (bound {SPATIAL_F32_GRAD_RTOL})")
+    for r in ranks:
+        steps_, differ, gen_equal = r["sp_remat"]
+        plain, rl1 = steps_["plain"], steps_["remat_level1"]
+        if differ or plain[0] != rl1[0] or not gen_equal:
+            raise AssertionError(f"rank {r['rank']} spatial remat_level1: loss {rl1[0]} vs "
+                                 f"{plain[0]}, grads differ at {differ[:4]}, generator equal "
+                                 f"{gen_equal}")
+        if plain[3]["diff_sigmoid_head"] != 1 or rl1[3]["diff_sigmoid_head"] != 2 or \
+                plain[3]["diff_sigmoid_head_backward"] != 1 or \
+                rl1[3]["diff_sigmoid_head_backward"] != 1:
+            raise AssertionError(f"rank {r['rank']} spatial remat launches {plain[3]} {rl1[3]}")
+    loss1, one_ms, one_gb, leaf, worst = r0["sp_one_step"]
+    plain0 = r0["sp_remat"][0]["plain"]
+    if abs(plain0[0] - loss1) > SPATIAL_LOSS_ATOL or worst > SPATIAL_GRAD_RTOL:
+        raise AssertionError(f"spatial step (no aux heads) vs 1 rank: loss {plain0[0]} vs "
+                             f"{loss1}, worst grad {leaf} {worst}")
+    print(f"scale-out spatial remat: one spatial step at batch {SPATIAL_TRAIN_BATCH} (fast head, "
+          f"no aux heads, deterministic cuDNN) with remat_level1 bit-equal to the plain spatial "
+          f"step on every rank (loss, gradients, generator; B 2 and B' 1 a rank, the tail's "
+          f"replay included); vs the whole tile on 1 rank: loss |d| {abs(plain0[0] - loss1):.3g},"
+          f" worst grad leaf {leaf} {worst:.3g}; step time by CUDA events: spatial plain "
+          f"{[round(r['sp_remat'][0]['plain'][1], 2) for r in ranks]} ms, remat_level1 "
+          f"{[round(r['sp_remat'][0]['remat_level1'][1], 2) for r in ranks]} ms per rank, peak "
+          f"{[round(r['sp_remat'][0]['plain'][2], 2) for r in ranks]} GB; 1 rank, whole tile "
+          f"{one_ms:.2f} ms, peak {one_gb:.2f} GB{sharing} [{smi}]")
+
+    (sw_counts, cas_counts, sw_s, cas_s, counts, striped, _, shape,
+     finite) = r0["stream"]
+    sw_err, cas_err, counts1, sw1, cas1, sw1_s, cas1_s = r0["stream_one"]
+    tiles = len(sliding_window_positions(shape, SIZE, 0.5))
+    sw_batches = math.ceil(tiles / (BATCH // 2))
+    want_sw = {"fused_zscore_normalize": sw_batches, "diff_sigmoid_head": sw_batches,
+               "percentile_normalize_u8": 0, "diff_sigmoid_head_backward": 0,
+               "d4_transform_batch": 2 * sw_batches, "ident_hwbc": 0}
+    seg_batches = math.ceil(counts[2] / BATCH)
+    want_cas = {"fused_zscore_normalize": seg_batches, "diff_sigmoid_head": seg_batches,
+                "percentile_normalize_u8": math.ceil(counts[0] / BATCH),
+                "diff_sigmoid_head_backward": 0, "d4_transform_batch": 0, "ident_hwbc": 0}
+    digests = {r["stream"][6] for r in ranks}
+    for r in ranks:
+        if r["stream"][0] != want_sw or r["stream"][1] != want_cas:
+            raise AssertionError(f"rank {r['rank']} tile stream launches {r['stream'][:2]}, "
+                                 f"want {want_sw} {want_cas}")
+    if not (finite and len(digests) == 1 and counts == counts1 and 0 < counts[2] and
+            not striped and sw_err <= STREAM_ATOL and cas_err <= STREAM_ATOL and
+            sw1 == want_sw and cas1 == want_cas):
+        raise AssertionError(f"tile stream over the ranks vs one process: counts {counts} vs "
+                             f"{counts1}, maps equal on the ranks {len(digests) == 1}, striped "
+                             f"{striped}, window err {sw_err}, cascade err {cas_err}, one "
+                             f"process launches {sw1} {cas1}")
+    print(f"scale-out tile stream: SlidingWindowInference(group=) minimal TTA, batch "
+          f"{BATCH // 2} ({tiles} tiles, {BATCH // 2 // SCALE_RANKS} a rank a batch) and "
+          f"DualModelWSIPipeline(group=) batch {BATCH} (tiles, good, positive {counts}, host "
+          f"tiling, one finalize) on the seeded {shape[0]}x{shape[1]} chunk over "
+          f"{SCALE_RANKS} ranks vs one process: max abs diff window {sw_err:.3g}, cascade "
+          f"{cas_err:.3g} (bound {STREAM_ATOL}; deterministic cuDNN), maps identical on the "
+          f"ranks; launches per rank window {[r['stream'][0] for r in ranks]}, cascade "
+          f"{[r['stream'][1] for r in ranks]}; first-call wall (host clock) window "
+          f"{[round(r['stream'][2], 2) for r in ranks]} s, cascade "
+          f"{[round(r['stream'][3], 2) for r in ranks]} s per rank; one process "
+          f"{sw1_s:.2f} / {cas1_s:.2f} s{sharing} [{smi}]")
+    spatial_path = {k: 0 for k in KERNELS}
+    for counts_ in (r0["sp_train"][0], r0["sp_step_fastFalse"][2], r0["sp_step_fastTrue"][2]):
+        for k, v in counts_.items():
+            spatial_path[k] += v
+    return {"spatial_train": spatial_path,
+            "tile_stream": {k: sw_counts[k] + cas_counts[k] for k in KERNELS}}
 
 
 # The path whose run gives each kernel's "launches": the newest that runs it.
@@ -3937,7 +4228,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths |= phase_serving(dev, Path(tmp), run, cls["run"], smi)
         torch.cuda.empty_cache()
-        paths["scale_out"] = phase_scale_out(dev, Path(tmp), data, run, smi)["launches"]
+        scaled = phase_scale_out(dev, Path(tmp), data, run, smi)
+        paths["scale_out"] = scaled["launches"]
+        paths["spatial_train"], paths["tile_stream"] = (scaled["spatial_train"],
+                                                        scaled["tile_stream"])
+        del scaled
         torch.cuda.empty_cache()
         phase_train_timing(dev, Path(tmp), data, smi)
         torch.cuda.empty_cache()

@@ -387,12 +387,30 @@ def test_merge_matching_takes_matching_leaves_only():
 
 
 def test_trainer_raises_on_shard_spatial(tmp_path):
-    """Spatially sharded training is the one knob not ported yet; several
-    devices and remat are (tests/test_torch_train_parallel.py)."""
+    """``shard_spatial`` does not raise: in one process its plan is 1 x 1,
+    which is the plain trainer, and one epoch of it logs the plain epoch's
+    losses, Dice and statistics bit for bit and saves the same params.
+    Several ranks are held to one in tests/test_torch_train_spatial.py."""
+    from adipose_tpu_torch.parallel.mesh import MeshPlan
+
     root = _write_dataset(tmp_path, 16, 2, 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        UNetTrainer(root, TrainConfig(shard_spatial=True), UNetConfig(),
-                    checkpoint_root=tmp_path / "ck", device="cpu")
+    logs, params = [], []
+    for spatial in (False, True):
+        trainer = UNetTrainer(root, TrainConfig(shard_spatial=spatial, batch_size=2),
+                              UNetConfig(init_nb=4, tile_size=16, compute_dtype="float32"),
+                              checkpoint_root=tmp_path / f"ck{spatial}",
+                              build_timestamp="t0", device="cpu")
+        assert trainer.plan == MeshPlan(1, 1)
+        assert trainer.shard is None and trainer.model.spatial is None
+        trainer.train(epochs_phase1=1, epochs_phase2=0)
+        rows = (trainer.ckpt_dir / "phase1_training.log").read_text().splitlines()
+        names = rows[0].split(",")
+        logs.append({n: v for n, v in zip(names, rows[1].split(",")) if n != "epoch_time_s"})
+        params.append(np.load(trainer.ckpt_dir / "phase1_best" / "params.npz"))
+    assert logs[0] == logs[1]
+    assert params[0].files == params[1].files
+    for k in params[0].files:
+        assert np.array_equal(params[0][k], params[1][k]), k
 
 
 # ---- adipose-torch train-unet ----------------------------------------------

@@ -375,7 +375,7 @@ def test_train_unet_cli_on_two_ranks_matches_one_rank(ranks, inputs, monkeypatch
                         lambda fn, n, args, backend: calls.append((fn, n, backend)))
     cli.main(_cli_args(inputs["root"], inputs["tmp"] / "unused", 2))
     assert calls == [(cli._train_unet_rank, 2, "gloo")]
-    assert [cli._plan_ranks("cpu", b, n) for b, n in ((2, 2), (2, 4), (3, 2), (4, 0))] == \
+    assert [cli._plan("cpu", b, n).size for b, n in ((2, 2), (2, 4), (3, 2), (4, 0))] == \
         [2, 2, 1, 1]
     monkeypatch.undo()
 

@@ -30,6 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.hostio import thread_map
 from adipose_tpu_torch.models.convert import flax_inception_to_torch, flax_unet_to_torch
 from adipose_tpu_torch.models.inception import InceptionV3Classifier
@@ -926,7 +927,8 @@ def _load_segmenter(weights, use_ema: bool = False, device="cuda"):
     base = make_unet_predict(model)
 
     def predict(p, tiles):
-        x, _stats = fused_zscore_normalize(tiles, mean, std, out_dtype=model.compute_dtype)
+        with tracing.span("model.prep"):
+            x, _stats = fused_zscore_normalize(tiles, mean, std, out_dtype=model.compute_dtype)
         return base(p, x)
 
     return predict, params, mean, std
@@ -956,11 +958,17 @@ def segment_batch(predict, params, batch: np.ndarray, batch_size: int, device) -
     """The device step of ``segment``: pad a chunk of (n, H, W) tiles to
     ``batch_size`` by repeating the last, predict, return the n real
     (n, H, W) float32 probability maps."""
-    n = batch.shape[0]
-    if n < batch_size:
-        batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - n, 0)])
-    tiles = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-    return predict(params, tiles)[:n].cpu().numpy()
+    with tracing.span("segment.batch"):
+        n = batch.shape[0]
+        if n < batch_size:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - n, 0)])
+        with tracing.span("entry.h2d"):
+            host = np.ascontiguousarray(batch)
+            tracing.count("h2d_bytes", host.nbytes)
+            tiles = torch.from_numpy(host).to(device)
+        out = predict(params, tiles)[:n].cpu().numpy()
+        tracing.count("d2h_bytes", out.nbytes)
+        return out
 
 
 def cmd_segment(args) -> None:
@@ -2046,8 +2054,8 @@ def cmd_validate_stain(args) -> dict:
 @contextlib.contextmanager
 def _profiled(profile_dir: str | None, name: str):
     """A torch.profiler trace of the block written to ``profile_dir/name``
-    (host and, where there is a card, device activities); nothing without
-    a directory."""
+    (host and, where there is a card, device activities, and the block's
+    program spans on a track of their own); nothing without a directory."""
     if not profile_dir:
         yield
         return
@@ -2056,10 +2064,13 @@ def _profiled(profile_dir: str | None, name: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    since = tracing.mark()
     with profile(activities=activities) as prof:
         yield
     Path(profile_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(profile_dir) / name))
+    path = Path(profile_dir) / name
+    prof.export_chrome_trace(str(path))
+    tracing.add_to_chrome_trace(path, since)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.ops.d4 import (CLASSIFIER_MODE_IDS, MODE_IDS, apply_transform,
                                       tta_collapse, tta_view_ids, tta_views)
 
@@ -67,16 +68,20 @@ def make_classifier_tta_predict(predict_fn, mode: str = "full", logit_space: boo
     view_ids = _view_ids_for(ids)
 
     def tta_predict(variables, images: torch.Tensor) -> torch.Tensor:
-        b = images.shape[0]
-        if images.dim() == 3:
-            views = tta_views(images.to(torch.float32), view_ids(b, images.device))
-        else:
-            views = torch.cat([torch.stack([apply_transform(im, t) for im in images])
-                               for t in ids])
-        probs = predict_fn(variables, views).reshape(n, b)
-        if logit_space:
-            p = probs.clamp(1e-7, 1 - 1e-7)
-            return torch.sigmoid(torch.log(p / (1 - p)).mean(0))
-        return probs.mean(0)
+        with tracing.span("tta.predict"):
+            b = images.shape[0]
+            with tracing.span("tta.views", device=True):
+                if images.dim() == 3:
+                    views = tta_views(images.to(torch.float32), view_ids(b, images.device))
+                else:
+                    views = torch.cat([torch.stack([apply_transform(im, t) for im in images])
+                                       for t in ids])
+            probs = predict_fn(variables, views)
+            with tracing.span("tta.collapse"):
+                probs = probs.reshape(n, b)
+                if logit_space:
+                    p = probs.clamp(1e-7, 1 - 1e-7)
+                    return torch.sigmoid(torch.log(p / (1 - p)).mean(0))
+                return probs.mean(0)
 
     return tta_predict

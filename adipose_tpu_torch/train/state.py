@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.ops import losses as L
 
 
@@ -156,7 +157,7 @@ def make_unet_predict(model: torch.nn.Module):
     model.eval()
 
     def predict(params: dict[str, torch.Tensor], images: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with torch.inference_mode(), tracing.span("model.forward", device=True):
             out = functional_call(model, params, (images,), strict=True)
         return out["main_out"] if isinstance(out, dict) else out
 

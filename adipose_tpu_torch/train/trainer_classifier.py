@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.config import ClassifierConfig, TrainConfig
 from adipose_tpu_torch.core.seeding import generator_for
 from adipose_tpu_torch.data.augment import batched_classification, draw_for_shard
@@ -221,7 +222,10 @@ def _make_val_step(model: torch.nn.Module, percentile_norm: bool, p_low: float,
 
     def step(state: dict[str, torch.Tensor], images: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return functional_call(model, state, (pre(images),), strict=True)
+            with tracing.span("model.prep", device=True):
+                x = pre(images)
+            with tracing.span("model.forward", device=True):
+                return functional_call(model, state, (x,), strict=True)
 
     return step
 

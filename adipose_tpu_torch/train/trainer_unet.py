@@ -60,6 +60,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
 from adipose_tpu_torch.core.seeding import generator_for
 from adipose_tpu_torch.data.augment import augment_batch
@@ -88,8 +89,9 @@ def make_augment_step(tier: str, shard: BatchShard | None = None):
     batch is this rank's rows of the global batch, on the global draws)."""
 
     def augment_step(generator, images_u8, masks_u8):
-        return augment_batch(generator, images_u8.to(torch.float32),
-                             masks_u8.to(torch.float32), tier, shard)
+        with tracing.span("train.augment"):
+            return augment_batch(generator, images_u8.to(torch.float32),
+                                 masks_u8.to(torch.float32), tier, shard)
 
     return augment_step
 
@@ -136,20 +138,25 @@ def _make_fused_train_step(model, loss_fn, norm_method: str, p_low: float, p_hig
     forward takes the normalized tiles' slab."""
 
     def step(state: TrainState, images, masks, generator, mean, std):
-        images = normalize_images(images.to(torch.float32), norm_method, mean, std,
-                                  p_low, p_high)
-        model.train()
-        out, masks = _global(model(_slab(model, images), generator=generator),
-                             masks.to(torch.float32), shard)
-        loss = loss_fn(masks, out)
-        main = out["main_out"] if isinstance(out, dict) else out
-        grads = torch.autograd.grad(loss, [state.params[k] for k in state.trainable],
-                                    allow_unused=True)
-        if shard is not None:
-            all_reduce_grads_(grads)
-        state.apply_gradients(grads)
-        with torch.no_grad():
-            return {"loss": loss.detach(), "dice_coef": L.dice_coef(masks, main.detach())}
+        with tracing.span("train.step"):
+            with tracing.span("train.forward", device=True):
+                images = normalize_images(images.to(torch.float32), norm_method, mean, std,
+                                          p_low, p_high)
+                model.train()
+                out = model(_slab(model, images), generator=generator)
+            with tracing.span("train.loss", device=True):
+                out, masks = _global(out, masks.to(torch.float32), shard)
+                loss = loss_fn(masks, out)
+            main = out["main_out"] if isinstance(out, dict) else out
+            with tracing.span("train.backward", device=True):
+                grads = torch.autograd.grad(loss, [state.params[k] for k in state.trainable],
+                                            allow_unused=True)
+            if shard is not None:
+                all_reduce_grads_(grads)
+            with tracing.span("train.optimizer", device=True):
+                state.apply_gradients(grads)
+            with torch.no_grad():
+                return {"loss": loss.detach(), "dice_coef": L.dice_coef(masks, main.detach())}
 
     return step
 
@@ -177,10 +184,12 @@ def _make_val_step(model, loss_fn, norm_method: str, p_low: float, p_high: float
 def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host batch on the device without waiting for the stream: pinned
     memory and an asynchronous copy (a pageable copy would wait)."""
-    t = torch.from_numpy(np.ascontiguousarray(batch))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    with tracing.span("entry.h2d"):
+        t = torch.from_numpy(np.ascontiguousarray(batch))
+        tracing.count("h2d_bytes", t.nbytes)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 def _epoch_means(metrics: list[dict], prefix: str = "") -> dict[str, float]:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from adipose_tpu_torch.core import tracing
+from adipose_tpu_torch.core.host_copy import HostCopy
 from adipose_tpu_torch.core.hostio import thread_map
 from adipose_tpu_torch.models.convert import flax_inception_to_torch, flax_unet_to_torch
 from adipose_tpu_torch.models.inception import InceptionV3Classifier
@@ -957,7 +958,8 @@ def _load_classifier(weights, device="cuda", percentile_norm: bool = True,
 def segment_batch(predict, params, batch: np.ndarray, batch_size: int, device) -> np.ndarray:
     """The device step of ``segment``: pad a chunk of (n, H, W) tiles to
     ``batch_size`` by repeating the last, predict, return the n real
-    (n, H, W) float32 probability maps."""
+    (n, H, W) float32 probability maps. From a card they come back into
+    pinned host memory (:class:`HostCopy`), which the returned array holds."""
     with tracing.span("segment.batch"):
         n = batch.shape[0]
         if n < batch_size:
@@ -966,8 +968,11 @@ def segment_batch(predict, params, batch: np.ndarray, batch_size: int, device) -
             host = np.ascontiguousarray(batch)
             tracing.count("h2d_bytes", host.nbytes)
             tiles = torch.from_numpy(host).to(device)
-        out = predict(params, tiles)[:n].cpu().numpy()
+        copy = HostCopy.start(predict(params, tiles)[:n])
+        out = copy.numpy()
         tracing.count("d2h_bytes", out.nbytes)
+        if copy.ready is not None:
+            tracing.count("d2h_pinned_bytes", out.nbytes)
         return out
 
 

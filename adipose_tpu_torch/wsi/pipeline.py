@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from adipose_tpu_torch.core.host_copy import HostCopy
 from adipose_tpu_torch.ops.blend import (
     accumulate_predictions,
     accumulate_weights,
@@ -74,31 +75,6 @@ class PipelineResult:
 
 
 @dataclass
-class _HostCopy:
-    """A device->host copy in flight: ``tensor`` is pinned host memory that
-    holds the data once ``ready`` (a CUDA event) has completed; on the CPU
-    there is nothing to wait for."""
-
-    tensor: torch.Tensor
-    ready: torch.cuda.Event | None
-
-    @classmethod
-    def start(cls, t: torch.Tensor) -> "_HostCopy":
-        if t.device.type == "cpu":
-            return cls(t, None)
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        return cls(host, ready)
-
-    def numpy(self) -> np.ndarray:
-        if self.ready is not None:
-            self.ready.synchronize()
-        return self.tensor.numpy()
-
-
-@dataclass
 class _PendingQC:
     """Per-chunk state between :meth:`DualModelWSIPipeline._dispatch_qc`
     (QC and classification enqueued, the stacked result's copy to the host
@@ -112,7 +88,7 @@ class _PendingQC:
     w: int
     n_tiles: int
     positions: np.ndarray
-    result: _HostCopy               # (2, padded_n): is_good, probability
+    result: HostCopy                # (2, padded_n): is_good, probability
     slide_dev: torch.Tensor | None  # device tiling
     tiles_host: np.ndarray | None   # host tiling
     timings: dict
@@ -130,7 +106,7 @@ class _PendingRun:
     n_good: int
     n_positive: int
     timings: dict
-    stripes: list  # [(y0, _HostCopy of the finalized stripe)]
+    stripes: list  # [(y0, HostCopy of the finalized stripe)]
     hs: int        # stripe height
 
 
@@ -295,7 +271,7 @@ class DualModelWSIPipeline:
             prob = self.classifier_predict(self.classifier_variables, tiles)
             outs.append(self._gathered(
                 torch.stack([good.to(torch.float32), prob.to(torch.float32)]), 1))
-        result = _HostCopy.start(torch.cat(outs, dim=1))
+        result = HostCopy.start(torch.cat(outs, dim=1))
         timings["qc_classify_s"] = time.time() - t0
         return _PendingQC(gray_shape=gray.shape, h=h, w=w, n_tiles=len(positions),
                           positions=positions, result=result, slide_dev=slide_dev,
@@ -373,7 +349,7 @@ class DualModelWSIPipeline:
             while next_s < len(y0s) and need[next_s] <= done_batches:
                 y0 = int(y0s[next_s])
                 stripe = finalize_blend_stripe(acc, wsum, y0, hs, out_dtype=self.transfer_dtype)
-                stripes.append((y0, _HostCopy.start(stripe)))
+                stripes.append((y0, HostCopy.start(stripe)))
                 next_s += 1
 
         flush(0)

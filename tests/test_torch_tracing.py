@@ -1,7 +1,9 @@
 """Program spans and counters (``adipose_tpu_torch.core.tracing``) on the
 CPU: off they cost a flag read; under a profiler session the request and
 step paths record their span trees on the profiler's clock, and nothing of
-them reaches the session's own events."""
+them reaches the session's own events. Tests marked ``card`` need a CUDA GPU
+and skip without one; on a card run them without the JAX test harness:
+``python -m pytest --noconftest -m card tests/test_torch_tracing.py``."""
 
 import json
 import sys
@@ -16,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from adipose_tpu_torch.cli import main as cli
 from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.config import TrainConfig
+from adipose_tpu_torch.core.host_copy import HostCopy
 from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
 from adipose_tpu_torch.models.convert import torch_unet_to_flax
 from adipose_tpu_torch.models.unet import DilatedUNet
@@ -56,6 +59,13 @@ def tiles(n, seed=0):
 
 def session():
     return profile(activities=[ProfilerActivity.CPU])
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA GPU: torch.cuda.is_available() is false")
+    return torch.device("cuda", 0)
 
 
 def tree(spans):
@@ -277,6 +287,76 @@ def test_segment_batch_records_its_tree_and_bytes(run):
     start = prof.profiler.kineto_results.trace_start_ns()
     enclosed(spans, prof.events(), "model.forward", "aten::convolution", start)
     no_span_in_session(prof, spans)
+
+
+def scaled(params, t):
+    """A stand-in predict: a fresh float32 map of each tile."""
+    return t.to(torch.float32) / 255
+
+
+def test_held_segment_batch_results_keep_their_values():
+    a = cli.segment_batch(scaled, {}, tiles(4, 1), 4, "cpu")
+    kept = a.copy()
+    b = cli.segment_batch(scaled, {}, tiles(4, 2), 4, "cpu")
+    assert not np.shares_memory(a, b)
+    np.testing.assert_array_equal(a, kept)
+    assert not np.array_equal(a, b)
+
+
+def test_the_cpu_path_pins_nothing_and_counts_no_pinned_bytes():
+    t = torch.ones(2, 3)
+    copy = HostCopy.start(t)
+    assert copy.tensor is t and copy.ready is None
+    with session():
+        out = cli.segment_batch(scaled, {}, tiles(3), 4, "cpu")
+    assert tracing.records()["counters"] == {"h2d_bytes": 4 * SIZE * SIZE,
+                                             "d2h_bytes": out.nbytes}
+    assert not torch.from_numpy(out).is_pinned()
+
+
+@pytest.fixture
+def card_segmenter(run, card, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    predict, params, _, _ = cli._load_segmenter(run, device=card)
+    return predict, params, card
+
+
+@pytest.mark.card
+def test_segment_batch_from_the_card_is_the_old_copys_bytes_in_pinned_memory(card_segmenter):
+    predict, params, card = card_segmenter
+    batch = tiles(3)
+    out = cli.segment_batch(predict, params, batch, 4, card)
+    padded = torch.from_numpy(np.concatenate([batch, batch[-1:]])).to(card)
+    old = predict(params, padded)[:3].cpu().numpy()
+    assert out.dtype == np.float32 and out.shape == (3, SIZE, SIZE)
+    np.testing.assert_array_equal(out.view(np.uint32), old.view(np.uint32))
+    assert torch.from_numpy(out).is_pinned()
+
+
+@pytest.mark.card
+def test_held_results_from_the_card_keep_their_values(card_segmenter):
+    predict, params, card = card_segmenter
+    outs, kept = [], []
+    for seed in range(4):
+        outs.append(cli.segment_batch(predict, params, tiles(4, seed), 4, card))
+        kept.append(outs[-1].copy())
+    del outs[0], kept[0]  # its block goes back to the cache for the next call
+    outs.append(cli.segment_batch(predict, params, tiles(4, 9), 4, card))
+    kept.append(outs[-1].copy())
+    for i, (a, k) in enumerate(zip(outs, kept)):
+        np.testing.assert_array_equal(a, k)
+        for b in outs[i + 1:]:
+            assert not np.shares_memory(a, b) and not np.array_equal(a, b)
+
+
+@pytest.mark.card
+def test_segment_batch_from_the_card_counts_its_pinned_bytes(card_segmenter):
+    predict, params, card = card_segmenter
+    with session():
+        out = cli.segment_batch(predict, params, tiles(3), 4, card)
+    counters = tracing.records()["counters"]
+    assert counters["d2h_pinned_bytes"] == counters["d2h_bytes"] == out.nbytes
 
 
 def test_the_fused_train_step_records_its_tree():

@@ -6,7 +6,9 @@ Architecture (the JAX module's docstring has the reference lines):
   bottleneck six Conv3x3-ReLU at init_nb*8, dilation 1..32, fed in sequence
              with dropout after the first, all six summed
   decoder    3 levels of [nearest-x2 upsample -> Conv3x3 -> skip concat ->
-             Conv3x3 x2 -> dropout]
+             Conv3x3 x2 -> dropout]; without autograd the upsample and its
+             conv run as one stride-2 transposed 4x4 conv
+             (:class:`FusedUpsampleConv`)
   head       Conv1x1 -> 2-way softmax -> class 1, computed as
              sigmoid(l1 - l0) by the CUDA head kernel (``fast_head``)
   aux heads  (optional) Conv1x1-sigmoid at up3 and up2, bilinearly resized;
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.ops.cuda.unet_kernels import diff_sigmoid_head
 from adipose_tpu_torch.parallel.collectives import gather_rows
 from adipose_tpu_torch.parallel.spatial import halo_exchange, spatial_max_pool2
@@ -96,20 +99,53 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
+def fold_upsample_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The (cin, cout, 4, 4) weight ``w`` for which ``F.conv_transpose2d(x, w,
+    stride=2, padding=1)`` equals a nearest-x2 upsample (Keras'
+    ``UpSampling2D``) followed by a SAME conv with the OIHW 3x3 ``weight``:
+    the JAX module's folded kernel ``K'[a, b]``, the sum of ``K[i, j]`` over
+    i in {a-1, a} and j in {b-1, b} (the 2x2 windows of ``K`` padded by one),
+    flipped on both spatial axes and with in and out channels swapped, as a
+    transposed conv takes it. Summed in ``weight``'s float32, then rounded to
+    ``dtype`` once, in ``channels_last`` memory."""
+    k4 = F.avg_pool2d(weight, 2, stride=1, padding=1, divisor_override=1)
+    return k4.flip(-2, -1).transpose(0, 1).to(dtype, memory_format=_CL)
+
+
 class FusedUpsampleConv(Conv):
-    """Nearest-x2 upsample followed by a 3x3 conv. The JAX module computes it
-    as one stride-2 transposed 4x4 conv; the two are the same function, and
-    the params are a plain 3x3 conv's."""
+    """Nearest-x2 upsample followed by a 3x3 conv. Where autograd does not
+    record (every predict, the export), it runs as the JAX module runs it:
+    one stride-2 transposed 4x4 conv whose kernel is folded from the 3x3
+    params on every call (:func:`fold_upsample_kernel`). The two are the same
+    function; the transposed conv never writes the upsampled map and takes 4
+    taps an output pixel, not 9. Under autograd the upsample and the 3x3 conv
+    run as two ops: split over slabs, the transposed conv's backward sums
+    its gradients in orders that leave the sharded training step further
+    from the one-rank step than ``tests/test_torch_train_spatial.py`` allows.
+    The params are a plain 3x3 conv's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(upsample_nearest_2x(x))
+        if torch.is_grad_enabled():
+            return super().forward(upsample_nearest_2x(x))
+        return self.transposed(x, 1)
 
     def forward_slab(self, x: torch.Tensor, group) -> torch.Tensor:
-        """The same on an H slab of ``group``: upsample the slab padded with
-        one row of each neighbour, keep one upsampled row a side (zeros at
-        the image's edges, as the global padding), VALID on H."""
-        y = upsample_nearest_2x(halo_exchange(x, 1, group))[..., 1:-1, :]
-        return super().forward(y, valid_h=True)
+        """The same on an H slab of ``group``: the slab padded with one row of
+        each neighbour (zeros at the image's edges, as the global padding),
+        VALID on H. The two ops keep one upsampled halo row a side; the
+        transposed conv's padding of 3 rows drops the halo rows' two output
+        rows a side besides the global padding's one."""
+        x = halo_exchange(x, 1, group)
+        if torch.is_grad_enabled():
+            return super().forward(upsample_nearest_2x(x)[..., 1:-1, :], valid_h=True)
+        return self.transposed(x, (3, 1))
+
+    def transposed(self, x: torch.Tensor, padding=1) -> torch.Tensor:
+        """The stride-2 transposed 4x4 conv; ``padding`` as
+        ``F.conv_transpose2d``'s (1: the upsample-conv with SAME padding)."""
+        tracing.count("upconv.transposed", 1)
+        w = fold_upsample_kernel(self.weight, x.dtype)
+        return F.conv_transpose2d(x, w, self.bias.to(x.dtype), stride=2, padding=padding)
 
 
 def sigmoid_head(conv: Conv, x: torch.Tensor) -> torch.Tensor:

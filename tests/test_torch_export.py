@@ -29,9 +29,8 @@ from test_torch_segment import MASK_FLIP_BAND
 
 MEAN, STD = 127.0, 60.0
 TILE, BATCH = 64, 4
-# Both sides bf16: the JAX module rounds to bf16 at other points (its fused
-# upsample conv sums in f32 before the cast; conv orders differ), measured
-# by tests/test_torch_unet.py::test_bf16_forward_matches_live_jax.
+# Both sides bf16: the two sum their convs in other orders, measured by
+# tests/test_torch_unet.py::test_bf16_forward_matches_live_jax.
 BF16_MAX_ATOL, BF16_MEAN_ATOL = 2e-3, 1e-4
 CSV_ATOL = 1e-6
 # torch.library.opcheck's checks but the slow AOT-dispatch one (the export

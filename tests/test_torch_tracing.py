@@ -13,6 +13,8 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from adipose_tpu_torch.cli import main as cli
@@ -21,7 +23,7 @@ from adipose_tpu_torch.core.config import TrainConfig
 from adipose_tpu_torch.core.host_copy import HostCopy
 from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
 from adipose_tpu_torch.models.convert import torch_unet_to_flax
-from adipose_tpu_torch.models.unet import DilatedUNet
+from adipose_tpu_torch.models.unet import DilatedUNet, FusedUpsampleConv
 from adipose_tpu_torch.serving.export import export_model
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.state import TrainState, unet_loss_from_config
@@ -31,6 +33,7 @@ from adipose_tpu_torch.train.trainer_unet import (_make_fused_train_step, _to_de
 
 SIZE = 64
 CLOCK_SLACK_US = 100.0  # a span against the profiler's events of its work
+BF16_EPS = 2.0 ** -7  # bfloat16's machine epsilon: 8 significant bits
 
 
 @pytest.fixture(autouse=True)
@@ -283,7 +286,8 @@ def test_segment_batch_records_its_tree_and_bytes(run):
     check_records(spans)
     assert len({s["request"] for s in spans}) == 2
     assert rec["counters"] == {"h2d_bytes": 2 * 4 * SIZE * SIZE,  # padded to the batch
-                               "d2h_bytes": out.nbytes + 4 * SIZE * SIZE * 4}
+                               "d2h_bytes": out.nbytes + 4 * SIZE * SIZE * 4,
+                               "upconv.transposed": 2 * 3}
     start = prof.profiler.kineto_results.trace_start_ns()
     enclosed(spans, prof.events(), "model.forward", "aten::convolution", start)
     no_span_in_session(prof, spans)
@@ -390,6 +394,19 @@ def test_the_fused_train_step_records_its_tree():
     no_span_in_session(prof, spans)
 
 
+def upconv_ops(prof) -> list[str]:
+    return [e.name for e in prof.events()
+            if e.name in ("aten::conv_transpose2d", "aten::upsample_nearest2d")]
+
+
+def test_a_unet_forward_runs_three_transposed_upconvs_and_counts_them():
+    model = DilatedUNet(init_nb=4).init_params(torch.Generator().manual_seed(4)).eval()
+    with session() as prof, torch.inference_mode():
+        model(torch.from_numpy(tiles(2)).float())
+    assert tracing.records()["counters"] == {"upconv.transposed": 3}
+    assert upconv_ops(prof) == ["aten::conv_transpose2d"] * 3
+
+
 class TinyClassifier(torch.nn.Module):
     """(B, 299, 299, 3) -> (B,) probabilities through one linear layer."""
 
@@ -479,3 +496,56 @@ def test_the_exporter_leaves_a_file_it_cannot_read_whole(tmp_path):
     with pytest.raises(ValueError):
         tracing.add_to_chrome_trace(path)
     assert path.read_text() == '{"traceEvents": []}'
+
+
+@pytest.mark.card
+def test_the_transposed_upconv_on_the_card_is_the_two_op_form(card):
+    """Level 1 of a b16 request, bf16 channels-last, (16, 88, 512^2) ->
+    (16, 44, 1024^2): the transposed 4x4 conv against a nearest-x2 upsample
+    and a 3x3 conv, both against the float32 function (TF32 off)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    conv = FusedUpsampleConv(88, 44, device=card)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, (88 * 9) ** -0.5, generator=gen)
+        conv.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(16, 88, 512, 512, device=card, generator=gen)
+    x16 = x.to(torch.bfloat16, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        folded = conv(x16).float()
+        two_op = F.conv2d(F.interpolate(x16, scale_factor=2, mode="nearest"),
+                          conv.weight.to(torch.bfloat16, memory_format=torch.channels_last),
+                          conv.bias.to(torch.bfloat16), padding=1).float()
+        del x16
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            want = F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), conv.weight,
+                            conv.bias, padding=1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    assert folded.shape == want.shape == (16, 44, 1024, 1024)
+    assert folded.is_contiguous(memory_format=torch.channels_last)
+    assert rel(folded, two_op) <= BF16_EPS
+    assert rel(folded, want) <= BF16_EPS and rel(two_op, want) <= BF16_EPS
+    assert (folded - two_op).abs().max().item() <= 4 * BF16_EPS * want.abs().max().item()
+
+
+@pytest.mark.card
+def test_a_full_width_unet_forward_on_the_card_launches_no_upsample(card):
+    model = DilatedUNet(init_nb=44, device=card).init_params(
+        torch.Generator(device=card).manual_seed(6)).eval()
+    images = torch.rand(2, 1024, 1024, device=card)
+    with torch.inference_mode():
+        model(images)  # cuDNN's plans, outside the session
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(images)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert any("dgrad" in k or "fprop" in k or "conv" in k.lower() for k in kernels), kernels
+    assert not [k for k in kernels if "upsample" in k]
+    assert tracing.records()["counters"] == {"upconv.transposed": 3}
+    assert upconv_ops(prof) == ["aten::conv_transpose2d"] * 3

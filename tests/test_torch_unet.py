@@ -11,11 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from adipose_tpu.models.unet import DilatedUNet as JaxUNet
 from adipose_tpu_torch.models.convert import (flax_unet_to_torch, load_flax_npz,
                                               save_flax_npz, torch_unet_to_flax)
-from adipose_tpu_torch.models.unet import DilatedUNet
+from adipose_tpu_torch.models.unet import DilatedUNet, FusedUpsampleConv
 
 TESTS = Path(__file__).parent
 VARIANTS = {
@@ -88,10 +89,10 @@ def test_forward_vs_tf_reference_goldens(ds, tag, seed):
 
 def test_bf16_forward_matches_live_jax(jax_params):
     """bf16 compute on both sides: the production JAX config (lane-padded,
-    fast head) against the port. The two round to bf16 at different points
-    (the JAX fused upsample conv sums its 4x4 kernel in f32 before the cast;
-    conv accumulation orders differ). Measured at this size: max 4.7e-4,
-    mean 2.9e-5."""
+    fast head) against the port. Both fold the upsample-conv's 4x4 kernel in
+    f32 before the cast; conv accumulation orders differ. Measured at this
+    size: max 4.3e-4, mean 1.6e-6 (max 4.7e-4, mean 2.9e-5 while the port
+    ran a bf16 3x3 conv over the upsampled map)."""
     params = {"params": {k: v for k, v in jax_params["params"].items()
                          if not k.startswith("aux_out")}}
     x = np.random.RandomState(0).randn(2, 64, 64).astype(np.float32)
@@ -129,3 +130,37 @@ def test_seeded_init_follows_flax(jax_params):
     again = DilatedUNet(init_nb=4, use_deep_supervision=True)
     again.init_params(torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", [(2, 3, 5, 7, 10), (1, 7, 1, 5, 3),
+                                             (3, 1, 4, 2, 9)])
+def test_fused_upsample_conv_equals_upsample_then_conv(b, cin, cout, h, w):
+    """The transposed 4x4 conv against a nearest-x2 upsample and a SAME 3x3
+    conv, in float32 channels-last with a bias: the outputs, and the
+    gradients of x, the 3x3 weight and the bias through the fold, within
+    1e-5 relative or absolute (the weight's gradients reach ~70 here, where
+    float32 resolves ~1e-5, and each form is that far from a float64 run).
+    Without autograd the module runs the transposed conv."""
+    gen = torch.Generator().manual_seed(100 * cin + cout)
+    conv = FusedUpsampleConv(cin, cout)
+    conv.reset_parameters(gen)
+    with torch.no_grad():
+        conv.bias.normal_(generator=gen)
+    x = torch.randn(b, cin, h, w, generator=gen).contiguous(memory_format=torch.channels_last)
+    g = torch.randn(b, cout, 2 * h, 2 * w, generator=gen)
+
+    def run(fn):
+        xi = x.clone().requires_grad_()
+        conv.zero_grad()
+        y = fn(xi)
+        (y * g).sum().backward()
+        return [t.detach().clone() for t in (y, xi.grad, conv.weight.grad, conv.bias.grad)]
+
+    got = run(conv.transposed)
+    want = run(lambda t: F.conv2d(F.interpolate(t, scale_factor=2, mode="nearest"),
+                                  conv.weight, conv.bias, padding=1))
+    assert got[0].shape == (b, cout, 2 * h, 2 * w)
+    with torch.no_grad():
+        assert torch.equal(conv(x), got[0])
+    for name, a, e in zip(("y", "dx", "dweight", "dbias"), got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5, msg=name)

@@ -31,15 +31,15 @@ import numpy as np
 import torch
 
 from adipose_tpu_torch.core import tracing
-from adipose_tpu_torch.core.host_copy import HostCopy
+from adipose_tpu_torch.core.host_copy import predict_batch
 from adipose_tpu_torch.core.hostio import thread_map
-from adipose_tpu_torch.models.convert import flax_inception_to_torch, flax_unet_to_torch
 from adipose_tpu_torch.models.inception import InceptionV3Classifier
 from adipose_tpu_torch.models.unet import DilatedUNet
-from adipose_tpu_torch.ops.cuda.preprocess import fused_zscore_normalize
+from adipose_tpu_torch.serving.predict import classifier_state
+# kept under these names: bench_h100/entries and chip_smoke.py import them from here
+from adipose_tpu_torch.serving.predict import load_classifier as _load_classifier
+from adipose_tpu_torch.serving.predict import load_segmenter as _load_segmenter
 from adipose_tpu_torch.train import checkpoint as ckpt
-from adipose_tpu_torch.train.state import make_unet_predict
-from adipose_tpu_torch.train.trainer_classifier import _make_val_step
 
 OVERLAY_RGB = {"cyan": (0, 255, 255), "yellow": (255, 255, 0),
                "magenta": (255, 0, 255), "green": (0, 255, 0), "red": (255, 0, 0)}
@@ -908,72 +908,11 @@ def _add_train_unet(sub) -> None:
     t.set_defaults(func=cmd_train_unet)
 
 
-def _load_segmenter(weights, use_ema: bool = False, device="cuda"):
-    """``(predict, params, mean, std)`` for a checkpoint dir: ``predict(params,
-    tiles)`` z-scores (B, H, W) uint8/float32 tiles on ``device`` with the
-    checkpoint's statistics and returns (B, H, W) float32 probabilities."""
-    weights_path = ckpt.resolve_weights_path(weights, use_ema)
-    ckpt_dir = weights_path.parent
-    mean, std = ckpt.load_normalization_stats(ckpt_dir)
-    mcfg = ckpt.detect_model_config(ckpt_dir)
-    model = DilatedUNet(
-        init_nb=mcfg.init_nb,
-        use_deep_supervision=mcfg.use_deep_supervision,
-        dilation_rates=tuple(mcfg.dilation_rates),
-        compute_dtype=torch.bfloat16,
-        device="meta",  # predict() runs on the params it is given
-    )
-    params = {k: v.to(device) for k, v in
-              flax_unet_to_torch(ckpt.load_params(weights_path)).items()}
-    base = make_unet_predict(model)
-
-    def predict(p, tiles):
-        with tracing.span("model.prep"):
-            x, _stats = fused_zscore_normalize(tiles, mean, std, out_dtype=model.compute_dtype)
-        return base(p, x)
-
-    return predict, params, mean, std
-
-
-def _classifier_state(weights, device="cuda") -> dict[str, torch.Tensor]:
-    """The classifier state dict of a checkpoint dir, on ``device``."""
-    variables = ckpt.load_params(ckpt.resolve_weights_path(weights))
-    return {k: v.to(device) for k, v in flax_inception_to_torch(variables).items()}
-
-
-def _load_classifier(weights, device="cuda", percentile_norm: bool = True,
-                     p_low: float = 1.0, p_high: float = 99.0):
-    """``(predict, state)`` for a classifier checkpoint dir:
-    ``predict(state, tiles)`` percentile-stretches (B, H, W) uint8/float32
-    tiles on ``device`` (unless ``percentile_norm`` is off), resizes them to
-    299^2 and runs the bf16 InceptionV3; it returns (B,) float32
-    probabilities. (B, H, W, 3) RGB tiles are resized without channel
-    tiling."""
-    # predict() runs on the state it is given
-    model = InceptionV3Classifier(compute_dtype=torch.bfloat16, device="meta")
-    return (_make_val_step(model, percentile_norm, p_low, p_high),
-            _classifier_state(weights, device))
-
-
 def segment_batch(predict, params, batch: np.ndarray, batch_size: int, device) -> np.ndarray:
-    """The device step of ``segment``: pad a chunk of (n, H, W) tiles to
-    ``batch_size`` by repeating the last, predict, return the n real
-    (n, H, W) float32 probability maps. From a card they come back into
-    pinned host memory (:class:`HostCopy`), which the returned array holds."""
+    """The device step of ``segment``: :func:`predict_batch` under the
+    ``segment.batch`` span."""
     with tracing.span("segment.batch"):
-        n = batch.shape[0]
-        if n < batch_size:
-            batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - n, 0)])
-        with tracing.span("entry.h2d"):
-            host = np.ascontiguousarray(batch)
-            tracing.count("h2d_bytes", host.nbytes)
-            tiles = torch.from_numpy(host).to(device)
-        copy = HostCopy.start(predict(params, tiles)[:n])
-        out = copy.numpy()
-        tracing.count("d2h_bytes", out.nbytes)
-        if copy.ready is not None:
-            tracing.count("d2h_pinned_bytes", out.nbytes)
-        return out
+        return predict_batch(predict, params, batch, batch_size, device)
 
 
 def cmd_segment(args) -> None:
@@ -1357,7 +1296,7 @@ def cmd_eval_classifier(args) -> dict:
     weights_path = ckpt.resolve_weights_path(args.weights)
     predict, state = _load_classifier(args.weights, args.device, args.percentile_norm,
                                       args.percentile_low, args.percentile_high)
-    snapshots = [state] + [_classifier_state(extra, args.device) for extra in args.snapshot]
+    snapshots = [state] + [classifier_state(extra, args.device) for extra in args.snapshot]
     test_dir = Path(args.test_dir) if args.test_dir else Path(args.dataset_root) / args.split
     ds = ClassificationDataset(test_dir, args.batch_size)
     cal_ds = None
@@ -1445,10 +1384,7 @@ def cmd_classify(args) -> list[dict]:
     for i in range(0, len(files), args.batch_size):
         chunk = files[i:i + args.batch_size]
         batch = np.stack(thread_map(read, chunk))  # cv2 releases the GIL
-        n = batch.shape[0]
-        if n < args.batch_size:  # a fixed batch: repeat the last tile
-            batch = np.concatenate([batch, np.repeat(batch[-1:], args.batch_size - n, 0)])
-        probs = predict(state, torch.from_numpy(batch).to(args.device))[:n].cpu().numpy()
+        probs = predict_batch(predict, state, batch, args.batch_size, args.device)
         for p, pr in zip(chunk, probs):
             bp = int(pr >= args.threshold)
             rows.append({"image_path": str(p), "adipose_probability": float(pr),

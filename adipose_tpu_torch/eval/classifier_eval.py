@@ -40,10 +40,10 @@ import torch
 from scipy.interpolate import interp1d
 from scipy.special import expit
 
+from adipose_tpu_torch.core.host_copy import copy_in_pinned
 from adipose_tpu_torch.data.loader import prefetch_batches
 from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
 from adipose_tpu_torch.train.trainer_classifier import extract_slide_base
-from adipose_tpu_torch.train.trainer_unet import _to_device
 
 
 def _predict_dataset(predict, variables, dataset, device) -> tuple:
@@ -53,7 +53,7 @@ def _predict_dataset(predict, variables, dataset, device) -> tuple:
     device = torch.device(device)
     probs, labels = [], []
     for imgs, labs in prefetch_batches(dataset.epoch_batches(0, shuffle=False)):
-        probs.append(predict(variables, _to_device(imgs, device)))
+        probs.append(predict(variables, copy_in_pinned(imgs, device)))
         labels.append(labs)
     n = len(dataset)
     return torch.cat(probs).cpu().numpy()[:n], np.concatenate(labels)[:n]

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from adipose_tpu_torch.core.config import EvalConfig, UNetConfig
+from adipose_tpu_torch.core.host_copy import predict_batch
 from adipose_tpu_torch.core.hostio import thread_map, write_csv
 from adipose_tpu_torch.eval.batch_eval import build_eval_config_string
 from adipose_tpu_torch.eval.boundary import BoundaryRefiner, calculate_boundary_metrics
@@ -42,13 +43,10 @@ from adipose_tpu_torch.eval.threshold import (extract_slide_id, optimize_thresho
                                               optimize_threshold_f1_slide_level)
 from adipose_tpu_torch.eval.tta import make_tta_predict
 from adipose_tpu_torch.eval.visualize import save_bucketed_visualizations
-from adipose_tpu_torch.models.convert import flax_unet_to_torch
-from adipose_tpu_torch.models.unet import DilatedUNet
-from adipose_tpu_torch.ops.cuda.preprocess import fused_zscore_normalize
 from adipose_tpu_torch.ops.d4 import MODE_IDS
 from adipose_tpu_torch.ops.metrics import batched_auc_metrics, batched_pixel_metrics
+from adipose_tpu_torch.serving.predict import load_segmenter
 from adipose_tpu_torch.train import checkpoint as ckpt
-from adipose_tpu_torch.train.state import make_unet_predict
 
 METRIC_KEYS = (
     "dice_score", "jaccard_index", "sensitivity", "specificity", "precision",
@@ -132,30 +130,11 @@ class PublicationEvaluator:
         self.device = torch.device(device)
         weights_path = ckpt.resolve_weights_path(weights, self.cfg.use_ema_weights)
         self.checkpoint_dir = weights_path.parent
-        self.mean, self.std = ckpt.load_normalization_stats(self.checkpoint_dir)
         self.model_cfg = model_cfg or ckpt.detect_model_config(self.checkpoint_dir)
-        compute_dtype = (torch.bfloat16 if self.model_cfg.compute_dtype == "bfloat16"
-                         else torch.float32)
-        self.model = DilatedUNet(
-            init_nb=self.model_cfg.init_nb,
-            dropout_rate=self.model_cfg.dropout_rate,
-            use_deep_supervision=self.model_cfg.use_deep_supervision,
-            dilation_rates=tuple(self.model_cfg.dilation_rates),
-            compute_dtype=compute_dtype,
-            device="meta",  # predict() runs on the params it is given
-        )
-        self.params = {k: v.to(self.device) for k, v in
-                       flax_unet_to_torch(ckpt.load_params(weights_path)).items()}
-        base_predict = make_unet_predict(self.model)
-        mean, std = self.mean, self.std
-
-        def normalized_predict(params, tiles):
-            x, _stats = fused_zscore_normalize(tiles, mean, std, out_dtype=compute_dtype)
-            return base_predict(params, x)
-
-        self.predict_raw = normalized_predict
-        self.predict = (make_tta_predict(normalized_predict, self.cfg.tta_mode)
-                        if self.cfg.use_tta else normalized_predict)
+        self.predict_raw, self.params, self.mean, self.std = load_segmenter(
+            weights, self.cfg.use_ema_weights, self.device, self.model_cfg)
+        self.predict = (make_tta_predict(self.predict_raw, self.cfg.tta_mode)
+                        if self.cfg.use_tta else self.predict_raw)
         # The float16 cast runs on the device, so the copy moves half the
         # bytes. Only at the direct-download site: the sliding window
         # quantizes once, on its blended map, so a map is never rounded twice.
@@ -196,12 +175,8 @@ class PublicationEvaluator:
                 for s in range(0, len(idxs), b):
                     chunk_idx = idxs[s:s + b]
                     batch = np.stack([images[j] for j in chunk_idx])
-                    n = batch.shape[0]
-                    if n < b:  # a fixed batch: repeat the last tile
-                        batch = np.concatenate([batch, np.repeat(batch[-1:], b - n, axis=0)])
-                    tiles = torch.from_numpy(batch).to(self.device)
-                    out = self.predict_transfer(self.params, tiles)[:n]
-                    out = out.cpu().numpy().astype(np.float32)
+                    out = predict_batch(self.predict_transfer, self.params, batch, b,
+                                        self.device).astype(np.float32)
                     for k, j in enumerate(chunk_idx):
                         preds[j] = out[k]
         if cfg.use_boundary_refinement:

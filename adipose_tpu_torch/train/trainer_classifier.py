@@ -54,6 +54,7 @@ from torch.func import functional_call
 
 from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.config import ClassifierConfig, TrainConfig
+from adipose_tpu_torch.core.host_copy import copy_in_pinned
 from adipose_tpu_torch.core.seeding import generator_for
 from adipose_tpu_torch.data.augment import batched_classification, draw_for_shard
 from adipose_tpu_torch.data.loader import ClassificationDataset, prefetch_batches
@@ -68,7 +69,7 @@ from adipose_tpu_torch.parallel.multihost import (BatchShard, broadcast_object,
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.schedules import EarlyStopping, ReduceLROnPlateau
 from adipose_tpu_torch.train.state import TrainState, classifier_stats_mask, set_learning_rate
-from adipose_tpu_torch.train.trainer_unet import _host_copy, _to_device
+from adipose_tpu_torch.train.trainer_unet import _host_copy
 
 INCEPTION_SIZE = 299
 
@@ -391,15 +392,15 @@ class ClassifierTrainer:
                 size = INCEPTION_SIZE if self.augment_low_res else imgs.shape[-1]
                 draws = draw_for_shard(gen, "classification", imgs.shape[0], size, size,
                                        self.shard)
-                x = prep_step(_to_device(imgs, dev), draws)
-                tms.append(train_step(state, x, _to_device(labels, dev), class_w, gen))
+                x = prep_step(copy_in_pinned(imgs, dev), draws)
+                tms.append(train_step(state, x, copy_in_pinned(labels, dev), class_w, gen))
             probs, labels_all = [], []
             for imgs, labels in prefetch_batches(
                     self.val_data.epoch_batches(epoch, shuffle=False, rows=self.rows)):
-                probs.append(val_step(live, _to_device(imgs, dev)))
+                probs.append(val_step(live, copy_in_pinned(imgs, dev)))
                 labels_all.append(labels)
             probs = torch.cat(probs)
-            labels_t = _to_device(np.concatenate(labels_all), dev)
+            labels_t = copy_in_pinned(np.concatenate(labels_all), dev)
             if self.shard is not None:  # the global batches' rows, in batch order
                 n = len(labels_all)
                 probs, labels_t = (gather_rows(t.reshape(n, -1), 1, self.shard.group).reshape(-1)

@@ -62,6 +62,7 @@ import torch
 
 from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.config import TrainConfig, UNetConfig
+from adipose_tpu_torch.core.host_copy import copy_in_pinned
 from adipose_tpu_torch.core.seeding import generator_for
 from adipose_tpu_torch.data.augment import augment_batch
 from adipose_tpu_torch.data.loader import TileDataset, prefetch_batches
@@ -81,6 +82,8 @@ from adipose_tpu_torch.train.ema import EmaTracker
 from adipose_tpu_torch.train.schedules import (EarlyStopping, ReduceLROnPlateau,
                                                cosine_with_warmup)
 from adipose_tpu_torch.train.state import TrainState, set_learning_rate, unet_loss_from_config
+
+_to_device = copy_in_pinned  # bench_h100/entries and chip_smoke.py import this name from here
 
 
 def make_augment_step(tier: str, shard: BatchShard | None = None):
@@ -179,17 +182,6 @@ def _make_val_step(model, loss_fn, norm_method: str, p_low: float, p_high: float
                     **activation_stats(main)}
 
     return step
-
-
-def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch on the device without waiting for the stream: pinned
-    memory and an asynchronous copy (a pageable copy would wait)."""
-    with tracing.span("entry.h2d"):
-        t = torch.from_numpy(np.ascontiguousarray(batch))
-        tracing.count("h2d_bytes", t.nbytes)
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
 
 
 def _epoch_means(metrics: list[dict], prefix: str = "") -> dict[str, float]:
@@ -406,10 +398,11 @@ class UNetTrainer:
             train_metrics = []
             for imgs, masks in prefetch_batches(self.train_data.epoch_batches(epoch,
                                                                               rows=self.rows)):
-                aug_imgs, aug_masks = augment_step(gen, _to_device(imgs, dev),
-                                                   _to_device(masks, dev))
+                aug_imgs, aug_masks = augment_step(gen, copy_in_pinned(imgs, dev),
+                                                   copy_in_pinned(masks, dev))
                 train_metrics.append(train_step(state, aug_imgs, aug_masks, gen, mean, std))
-            val_metrics = [val_step(_to_device(imgs, dev), _to_device(masks, dev), mean, std)
+            val_metrics = [val_step(copy_in_pinned(imgs, dev), copy_in_pinned(masks, dev),
+                                    mean, std)
                            for imgs, masks in prefetch_batches(
                                self.val_data.epoch_batches(epoch, shuffle=False,
                                                            rows=self.rows))]

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from adipose_tpu_torch.core.host_copy import HostCopy
+from adipose_tpu_torch.core.host_copy import HostCopy, copy_in_pinned
 from adipose_tpu_torch.ops.blend import (
     accumulate_predictions,
     accumulate_weights,
@@ -163,14 +163,6 @@ class DualModelWSIPipeline:
         # depend only on the shape, and each is one f32 canvas on the device
         self._wsum: dict = {}
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without a host wait (pinned staging:
-        a pageable copy would wait for all work queued on the stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def run(self, image: np.ndarray) -> PipelineResult:
         return self._finish(self._dispatch(image, sync_segment=True))
 
@@ -237,7 +229,7 @@ class DualModelWSIPipeline:
     def _tiles(self, slide_dev, tiles_host, positions, idx) -> torch.Tensor:
         if slide_dev is not None:
             return extract_tiles(slide_dev, positions[idx], self.tile_size)
-        return self._upload(tiles_host[idx])
+        return copy_in_pinned(tiles_host[idx], self.device)
 
     def _dispatch_qc(self, image: np.ndarray) -> _PendingQC:
         """Stage 1: pad and tile the chunk, enqueue QC and classification,
@@ -255,7 +247,7 @@ class DualModelWSIPipeline:
         positions = sliding_window_positions(gray.shape, t, self.overlap)
         slide_dev = tiles_host = None
         if self.device_tiling:
-            slide_dev = self._upload(gray)
+            slide_dev = copy_in_pinned(gray, self.device)
         else:
             tiles_host = np.stack([gray[y:y + t, x:x + t] for y, x in positions.tolist()])
         timings["tiling_s"] = time.time() - t0

@@ -31,25 +31,13 @@ import cv2
 import numpy as np
 import torch
 
+from adipose_tpu_torch.core.host_copy import copy_in, predict_batch
 from adipose_tpu_torch.core.hostio import thread_map, write_csv
 from adipose_tpu_torch.eval.boundary import BoundaryRefiner
 from adipose_tpu_torch.ops.blend import (accumulate_predictions, accumulate_weights,
                                          blend_tiles, finalize_blend, gaussian_weight_map)
 from adipose_tpu_torch.ops.metrics import pixel_metrics
-
-
-def pad_batch_to(batch_size: int, *arrays):
-    """Pad arrays' leading axis up to ``batch_size`` by repeating the last
-    element; returns (padded_arrays, real_count): a fixed batch for a ragged
-    final chunk (``adipose_tpu/parallel/mesh.py:pad_batch_to``)."""
-    out = []
-    n = arrays[0].shape[0]
-    for a in arrays:
-        if a.shape[0] < batch_size:
-            pad = np.repeat(a[-1:], batch_size - a.shape[0], axis=0)
-            a = np.concatenate([a, pad], axis=0)
-        out.append(a)
-    return out, n
+from adipose_tpu_torch.parallel.mesh import pad_batch_to
 
 
 def parse_tile_filename(filename: str):
@@ -147,16 +135,10 @@ class SlideReconstructor:
                         if use_refinement else None)
         self.stripe_tiles = stripe_tiles  # 0 = single canvas
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def _predict_batch(self, tiles: np.ndarray) -> np.ndarray:
-        preds = []
         b = self.batch_size
-        for i in range(0, len(tiles), b):
-            (chunk,), n = pad_batch_to(b, tiles[i : i + b])
-            preds.append(self.predict_fn(self.params, self._upload(chunk))[:n].cpu().numpy())
-        return np.concatenate(preds)
+        return np.concatenate([predict_batch(self.predict_fn, self.params, tiles[i : i + b], b,
+                                             self.device) for i in range(0, len(tiles), b)])
 
     def _predict_and_blend(self, tiles: np.ndarray, positions: np.ndarray,
                            shape) -> np.ndarray:
@@ -170,7 +152,7 @@ class SlideReconstructor:
         b = self.batch_size
         for i in range(0, len(tiles), b):
             (chunk, cpos), n = pad_batch_to(b, tiles[i : i + b], positions[i : i + b])
-            pred = self.predict_fn(self.params, self._upload(chunk))
+            pred = self.predict_fn(self.params, copy_in(chunk, self.device))
             valid = np.arange(b) < n
             accumulate_predictions(acc, pred, cpos, self.weight_map, valid)
             accumulate_weights(wsum, cpos, self.weight_map, valid)
@@ -179,7 +161,8 @@ class SlideReconstructor:
     def _blend(self, tiles: np.ndarray, positions: np.ndarray, shape):
         h, w = int(shape[0]), int(shape[1])
         if not self.stripe_tiles:
-            return blend_tiles(self._upload(tiles), positions, self.weight_map, h, w).cpu().numpy()
+            return blend_tiles(copy_in(tiles, self.device), positions, self.weight_map, h,
+                               w).cpu().numpy()
         # Striped blending for canvases beyond device memory: process bands of
         # `stripe_tiles` tile-rows; tiles fall wholly inside one band because
         # band boundaries align to stride multiples.
@@ -195,7 +178,7 @@ class SlideReconstructor:
             local = positions[sel].copy()
             local[:, 0] -= y0
             bh = min(band_h, h - y0)
-            band = blend_tiles(self._upload(tiles[sel]), local, self.weight_map,
+            band = blend_tiles(copy_in(tiles[sel], self.device), local, self.weight_map,
                                bh, w).cpu().numpy()
             # accumulate band weights for overlap-correct normalization
             bw = np.zeros((bh, w), np.float32)
@@ -328,7 +311,7 @@ def reconstruct_all_slides(
                         (np.clip(gt, 0, 1) * 255).astype(np.uint8))
             # in key order, as the JAX package's jitted dict comes back
             m = {k: float(v) for k, v in sorted(pixel_metrics(
-                recon._upload(pred), recon._upload(gt), threshold).items())}
+                copy_in(pred, recon.device), copy_in(gt, recon.device), threshold).items())}
             entry["metrics"] = m
             (slide_dir / "metrics.json").write_text(json.dumps(m, indent=2))
             summary_rows.append({"slide": slide_id, **m})

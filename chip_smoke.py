@@ -209,10 +209,10 @@ import numpy as np
 import torch
 
 import adipose_tpu_torch.cli.main as cli
-import adipose_tpu_torch.eval.evaluator as evaluator_module
 import adipose_tpu_torch.models.unet as unet_module
 import adipose_tpu_torch.ops.d4 as d4_module
 import adipose_tpu_torch.ops.normalize as normalize_module
+import adipose_tpu_torch.serving.predict as predict_module
 from adipose_tpu_torch.cli.main import _load_classifier, _load_segmenter, segment_batch
 from adipose_tpu_torch.core.hostio import thread_map
 from adipose_tpu_torch.models.convert import torch_inception_to_flax, torch_unet_to_flax
@@ -406,8 +406,7 @@ def launches() -> dict[str, int]:
 def plain_kernels():
     """Swap every kernel wrapper on the port's paths for its plain version
     (the plain head is differentiable by autograd, so it stands for B' too)."""
-    swaps = [(cli, "fused_zscore_normalize", fused_zscore_normalize_plain),
-             (evaluator_module, "fused_zscore_normalize", fused_zscore_normalize_plain),
+    swaps = [(predict_module, "fused_zscore_normalize", fused_zscore_normalize_plain),
              (unet_module, "diff_sigmoid_head", diff_sigmoid_head_plain),
              (normalize_module, "percentile_normalize_u8", percentile_normalize_u8_plain),
              (d4_module, "d4_transform_batch", d4_transform_batch_plain)]
@@ -1919,7 +1918,7 @@ def phase_classifier_eval(dev, tmp: Path, cls_run: Path, seg_run: Path, smi: str
           f"{chunk_ms:.2f} ms = {CLS_EVAL_BATCH * 1000.0 / chunk_ms:.2f} tiles/s [{smi}]")
     from adipose_tpu_torch.data.loader import ClassificationDataset as Dataset
 
-    snapshots = [state, cli._classifier_state(snapshot, dev)]
+    snapshots = [state, predict_module.classifier_state(snapshot, dev)]
 
     def flow(out_dir: Path, timings: dict) -> None:
         run_classifier_evaluation(predict, snapshots, Dataset(data / "test", CLS_EVAL_BATCH),

@@ -22,7 +22,7 @@ from adipose_tpu.train import checkpoint as jax_ckpt
 from adipose_tpu.train.state import make_unet_predict as jax_make_unet_predict
 from adipose_tpu.train.trainer_classifier import _make_val_step as jax_make_val_step
 from adipose_tpu.wsi.pipeline import DualModelWSIPipeline as JaxPipeline
-from adipose_tpu_torch.cli.main import _load_classifier, _load_segmenter
+from adipose_tpu_torch.serving.predict import load_classifier, load_segmenter
 from adipose_tpu_torch.cli.main import main as torch_main
 from adipose_tpu_torch.models.convert import (flax_inception_to_torch, flax_unet_to_torch,
                                               torch_unet_to_flax)
@@ -282,8 +282,8 @@ def test_pipeline_cli_matches_jax_cli(weights, tmp_path):
     assert 0 < logs[1]["n_positive"] < logs[1]["n_tiles"]
 
     # the port's map as the CLI computed it, to locate mask flips
-    seg_predict, seg_params, _, _ = _load_segmenter(seg_run, device="cpu")
-    cls_predict, cls_state = _load_classifier(cls_run, device="cpu")
+    seg_predict, seg_params, _, _ = load_segmenter(seg_run, device="cpu")
+    cls_predict, cls_state = load_classifier(cls_run, device="cpu")
     pipe = DualModelWSIPipeline(cls_predict, cls_state, seg_predict, seg_params, tile_size=64,
                                 batch_size=2, classifier_threshold=0.0, device="cpu")
     read = lambda side, f: cv2.imread(str(tmp_path / side / f), cv2.IMREAD_UNCHANGED)  # noqa: E731

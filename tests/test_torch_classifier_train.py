@@ -30,7 +30,7 @@ from adipose_tpu.train import trainer_classifier as jtc
 from adipose_tpu.train.state import TrainState as JaxTrainState
 from adipose_tpu.train.state import classifier_stats_mask as jax_stats_mask
 from adipose_tpu.train.state import make_optimizer
-from adipose_tpu_torch.cli.main import _load_classifier
+from adipose_tpu_torch.serving.predict import load_classifier
 from adipose_tpu_torch.cli.main import main as torch_main
 from adipose_tpu_torch.data.augment import (TIER_STAGES, augment_classification_batch,
                                             augment_grayscale_classification,
@@ -377,7 +377,7 @@ def test_train_classifier_cli_writes_the_artifact_contract(tmp_path):
     config.json with the JAX keys, the CSV columns, ``weights_best`` and
     ``weights_final`` with the JAX tree's keys and shapes, convs 0-69 and
     their statistics bit-unchanged from the seeded init through both
-    phases; ``weights_best`` then serves through ``_load_classifier``."""
+    phases; ``weights_best`` then serves through ``load_classifier``."""
     root = _write_class_dataset(tmp_path, 48, {"train": 2, "val": 2})
     torch_main(["train-classifier", "--dataset-root", str(root), "--warmup-epochs", "1",
                 "--finetune-epochs", "1", "--batch-size", "2", "--use-class-weights",
@@ -409,7 +409,7 @@ def test_train_classifier_cli_writes_the_artifact_contract(tmp_path):
             assert torch.equal(v, init[k]), k
     assert not torch.equal(final["adipose_score.weight"], init["adipose_score.weight"])
 
-    predict, state = _load_classifier(run, device="cpu")
+    predict, state = load_classifier(run, device="cpu")
     tiles = torch.from_numpy(np.stack([cv2.imread(str(p), cv2.IMREAD_GRAYSCALE) for p in
                                        sorted((root / "val").rglob("*.jpg"))]))
     probs = predict(state, tiles)

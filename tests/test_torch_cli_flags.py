@@ -77,3 +77,33 @@ def test_port_imports_no_sklearn_pandas_or_matplotlib():
     files = sorted((ROOT / "adipose_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def _imported_modules(path: Path) -> set[str]:
+    """Every module an import statement names, ``from a import b`` as both
+    ``a`` and ``a.b``."""
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            mods |= {node.module} | {f"{node.module}.{a.name}" for a in node.names}
+    return mods
+
+
+def test_lower_layers_import_neither_the_cli_nor_the_unet_trainer():
+    """The command line sits above every other module of the port, and the
+    inference packages (eval, wsi, serving) take their copies and loaders
+    from core and serving, not from the U-Net trainer."""
+    port = ROOT / "adipose_tpu_torch"
+    bad = {}
+    for f in sorted(port.rglob("*.py")):
+        rel = f.relative_to(port)
+        mods = _imported_modules(f)
+        banned = [] if rel.parts[0] == "cli" else ["adipose_tpu_torch.cli"]
+        if rel.parts[0] in ("eval", "wsi", "serving"):
+            banned.append("adipose_tpu_torch.train.trainer_unet")
+        hits = sorted(m for m in mods for b in banned if m == b or m.startswith(b + "."))
+        if hits:
+            bad[str(rel)] = hits
+    assert not bad

@@ -17,7 +17,7 @@ import torch
 
 from adipose_tpu.models.unet import DilatedUNet as JaxUNet
 from adipose_tpu.train.state import make_unet_predict as jax_make_unet_predict
-from adipose_tpu_torch.cli.main import _load_segmenter
+from adipose_tpu_torch.serving.predict import load_segmenter
 from adipose_tpu_torch.cli.main import main as torch_main
 from adipose_tpu_torch.models.convert import torch_inception_to_flax, torch_unet_to_flax
 from adipose_tpu_torch.models.inception import InceptionV3Classifier
@@ -118,7 +118,7 @@ def test_call_with_other_params_equals_eager(unet):
     call, _, _ = load_exported(bundle, "cpu")
     other = DilatedUNet(init_nb=4).init_params(torch.Generator().manual_seed(11)).state_dict()
     other = {k: v.detach() for k, v in other.items()}
-    predict, own, _, _ = _load_segmenter(run, device="cpu")
+    predict, own, _, _ = load_segmenter(run, device="cpu")
     x = torch.from_numpy(_tiles(seed=1))
     got = call(other, x)
     assert torch.equal(got, predict(other, x))

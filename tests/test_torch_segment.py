@@ -16,8 +16,9 @@ import torch
 from adipose_tpu.cli.main import main as jax_main
 from adipose_tpu.models.unet import DilatedUNet as JaxUNet
 from adipose_tpu.train import checkpoint as jax_ckpt
-from adipose_tpu_torch.cli.main import _load_segmenter, segment_batch
 from adipose_tpu_torch.cli.main import main as torch_main
+from adipose_tpu_torch.cli.main import segment_batch
+from adipose_tpu_torch.serving.predict import load_segmenter
 from adipose_tpu_torch.train import checkpoint as ckpt
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -77,7 +78,7 @@ def test_segment_matches_jax_cli(run_and_tiles, tmp_path):
     assert rel(tmp_path / "jax") == rel(tmp_path / "torch")
     assert len(rel(tmp_path / "torch")) == 9
 
-    predict, params, _, _ = _load_segmenter(run, device="cpu")
+    predict, params, _, _ = load_segmenter(run, device="cpu")
     names = sorted(tiles.iterdir())
     batch = np.stack([cv2.imread(str(p), cv2.IMREAD_UNCHANGED).astype(np.float32)
                       for p in names])
@@ -116,15 +117,16 @@ def test_segment_tta_matches_jax_cli(run_and_tiles, tmp_path, monkeypatch):
     tile chunk is --batch-size divided by the 4 views, so each forward
     batch is --batch-size images."""
     import adipose_tpu_torch.cli.main as cli
+    import adipose_tpu_torch.serving.predict as serving_predict
 
     run, tiles = run_and_tiles
     _export_script().main([str(run)])
     chunks, forwards = [], []
     segment = cli.segment_batch
-    zscore = cli.fused_zscore_normalize
+    zscore = serving_predict.fused_zscore_normalize
     monkeypatch.setattr(cli, "segment_batch", lambda predict, params, batch, size, device: (
         chunks.append((batch.shape[0], size)) or segment(predict, params, batch, size, device)))
-    monkeypatch.setattr(cli, "fused_zscore_normalize", lambda tiles, *a, **k: (
+    monkeypatch.setattr(serving_predict, "fused_zscore_normalize", lambda tiles, *a, **k: (
         forwards.append(tuple(tiles.shape)) or zscore(tiles, *a, **k)))
     flags = ["--input-dir", str(tiles), "--batch-size", "8", "--save-probability",
              "--use-tta", "--tta-mode", "basic", "--weights", str(run)]
@@ -139,7 +141,7 @@ def test_segment_tta_matches_jax_cli(run_and_tiles, tmp_path, monkeypatch):
     monkeypatch.undo()
     from adipose_tpu_torch.eval.tta import make_tta_predict
 
-    predict, params, _, _ = _load_segmenter(run, device="cpu")
+    predict, params, _, _ = load_segmenter(run, device="cpu")
     names = sorted(tiles.iterdir())
     batch = np.stack([cv2.imread(str(p), cv2.IMREAD_UNCHANGED).astype(np.float32)
                       for p in names])

@@ -19,8 +19,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from adipose_tpu_torch.cli import main as cli
 from adipose_tpu_torch.core import tracing
-from adipose_tpu_torch.core.config import TrainConfig
-from adipose_tpu_torch.core.host_copy import HostCopy
+from adipose_tpu_torch.core.config import EvalConfig, TrainConfig
+from adipose_tpu_torch.core.host_copy import HostCopy, copy_in_pinned, predict_batch
+from adipose_tpu_torch.eval.evaluator import PublicationEvaluator
 from adipose_tpu_torch.eval.tta import make_classifier_tta_predict
 from adipose_tpu_torch.models.convert import torch_unet_to_flax
 from adipose_tpu_torch.models.unet import DilatedUNet, FusedUpsampleConv
@@ -28,8 +29,7 @@ from adipose_tpu_torch.serving.export import export_model
 from adipose_tpu_torch.train import checkpoint as ckpt
 from adipose_tpu_torch.train.state import TrainState, unet_loss_from_config
 from adipose_tpu_torch.train.trainer_classifier import _make_val_step
-from adipose_tpu_torch.train.trainer_unet import (_make_fused_train_step, _to_device,
-                                                   make_augment_step)
+from adipose_tpu_torch.train.trainer_unet import _make_fused_train_step, make_augment_step
 
 SIZE = 64
 CLOCK_SLACK_US = 100.0  # a span against the profiler's events of its work
@@ -293,6 +293,28 @@ def test_segment_batch_records_its_tree_and_bytes(run):
     no_span_in_session(prof, spans)
 
 
+def test_the_evaluators_direct_loop_records_the_request_steps_spans_and_bytes(run, tmp_path):
+    """``PublicationEvaluator.predict_tiles`` runs its batches through the
+    request step: the copy in, the z-score and the forward, each batch's
+    bytes each way (padded in, float16 maps back)."""
+    import cv2
+
+    paths = []
+    for i, tile in enumerate(tiles(3)):
+        paths.append(str(tmp_path / f"s_r0_c{i}.png"))
+        cv2.imwrite(paths[-1], tile)
+    ev = PublicationEvaluator(run, EvalConfig(batch_size=4), device="cpu")
+    with session():
+        _, preds = ev.predict_tiles(paths)
+    rec = tracing.records()
+    assert tree(rec["spans"]) == [("entry.h2d", []), ("model.prep", []), ("model.forward", [])]
+    check_records(rec["spans"])
+    assert rec["counters"] == {"h2d_bytes": 4 * SIZE * SIZE * 4,  # float32, padded to 4
+                               "d2h_bytes": 3 * SIZE * SIZE * 2,  # float16, the 3 real maps
+                               "upconv.transposed": 3}
+    assert [p.dtype for p in preds] == [np.float32] * 3
+
+
 def scaled(params, t):
     """A stand-in predict: a fresh float32 map of each tile."""
     return t.to(torch.float32) / 255
@@ -327,10 +349,13 @@ def card_segmenter(run, card, monkeypatch):
 
 
 @pytest.mark.card
-def test_segment_batch_from_the_card_is_the_old_copys_bytes_in_pinned_memory(card_segmenter):
+@pytest.mark.parametrize("step", [cli.segment_batch, predict_batch],
+                         ids=["segment_batch", "predict_batch"])
+def test_segment_batch_from_the_card_is_the_old_copys_bytes_in_pinned_memory(card_segmenter,
+                                                                             step):
     predict, params, card = card_segmenter
     batch = tiles(3)
-    out = cli.segment_batch(predict, params, batch, 4, card)
+    out = step(predict, params, batch, 4, card)
     padded = torch.from_numpy(np.concatenate([batch, batch[-1:]])).to(card)
     old = predict(params, padded)[:3].cpu().numpy()
     assert out.dtype == np.float32 and out.shape == (3, SIZE, SIZE)
@@ -378,8 +403,8 @@ def test_the_fused_train_step_records_its_tree():
     images, masks = tiles(2), (tiles(2, 1) > 127).astype(np.uint8)
     with session() as prof:
         for _ in range(2):
-            x, m = augment(gen, _to_device(images, torch.device("cpu")),
-                           _to_device(masks, torch.device("cpu")))
+            x, m = augment(gen, copy_in_pinned(images, torch.device("cpu")),
+                           copy_in_pinned(masks, torch.device("cpu")))
             step(state, x, m, gen, zero, one)
     rec = tracing.records()
     spans = rec["spans"]

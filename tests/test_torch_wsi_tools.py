@@ -25,6 +25,7 @@ from adipose_tpu.wsi import reconstruct as jax_reconstruct
 from adipose_tpu_torch.cli.main import main as torch_main
 from adipose_tpu_torch.core.config import EvalConfig, UNetConfig
 from adipose_tpu_torch.eval.evaluator import PublicationEvaluator
+from adipose_tpu_torch.parallel.mesh import pad_batch_to
 from adipose_tpu_torch.wsi import overlay, reconstruct
 from test_torch_build import write_slides
 from test_torch_evaluate import eval_fixture  # noqa: F401  (a module-scoped fixture)
@@ -219,7 +220,7 @@ def test_tile_name_helpers_match_jax(recon, tmp_path):
     assert reconstruct.find_source_image("wsiA", tmp_path) == \
         jax_reconstruct.find_source_image("wsiA", tmp_path)
     a = np.arange(12).reshape(4, 3)
-    (pa,), n = reconstruct.pad_batch_to(6, a)
+    (pa,), n = pad_batch_to(6, a)
     assert n == 4 and pa.shape == (6, 3) and (pa[4:] == a[-1]).all()
 
 
@@ -227,10 +228,10 @@ def test_reconstruct_cli_runs_the_library_call(recon, tmp_path):
     """``adipose-torch reconstruct --use-tta --tta-mode basic --batch-size 8
     --boundary-refine --device cpu`` writes what ``reconstruct_all_slides``
     writes for ``adipose reconstruct``'s arguments (the segmenter of
-    ``_load_segmenter`` in bf16, its TTA predict, the tile chunk divided by
+    ``load_segmenter`` in bf16, its TTA predict, the tile chunk divided by
     the 4 views): the same files, the PNGs and JSON equal. The library call
     is held to the JAX package above."""
-    from adipose_tpu_torch.cli.main import _load_segmenter
+    from adipose_tpu_torch.serving.predict import load_segmenter
     from adipose_tpu_torch.eval.tta import make_tta_predict
 
     tiles = recon["tiles"]
@@ -239,7 +240,7 @@ def test_reconstruct_cli_runs_the_library_call(recon, tmp_path):
                 str(N), "--stride", str(N), "--use-tta", "--tta-mode", "basic", "--batch-size",
                 "8", "--boundary-refine", "--output-dir", str(tmp_path / "cli"),
                 "--device", "cpu"])
-    predict, params, _, _ = _load_segmenter(recon["ckpt"], device="cpu")
+    predict, params, _, _ = load_segmenter(recon["ckpt"], device="cpu")
     reconstruct.reconstruct_all_slides(
         tiles / "images", tiles / "masks", tmp_path / "lib", make_tta_predict(predict, "basic"),
         params, tile_size=N, stride=N, batch_size=2, use_refinement=True, device="cpu")

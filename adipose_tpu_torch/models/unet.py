@@ -26,8 +26,11 @@ the compute dtype at use; activations are NCHW tensors in
 the head kernel reads each pixel's channels contiguously. The input is cast
 to the compute dtype before the first conv, biases are added in the compute
 dtype, the bottleneck taps are summed in order in the compute dtype, and the
-heads accumulate in float32. The TPU's lane padding (``lane_pad``) is not
-carried: it is bit-exact there and this is the same unpadded function.
+heads accumulate in float32. Every activation is stored at :func:`lane`
+channels, the next multiple of 8, as the JAX module pads its level-1
+channels (``lane_pad``): the extra channels are exact zeros, the weights and
+biases are zero-padded at use and the params keep their shapes, so the
+function is the unpadded one. At ``init_nb`` 44 that is level 1, at 48.
 
 Layer names are the Keras names the JAX module keeps, so
 :mod:`adipose_tpu_torch.models.convert` maps Flax params one to one.
@@ -61,18 +64,55 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+def lane(channels: int) -> int:
+    """The channels a U-Net activation of ``channels`` channels is stored at:
+    the next multiple of 8, so that each bf16 pixel's channels fill whole
+    16-byte groups, as cuDNN's tensor-core convs read them (it copies any
+    other count into a padded buffer and back on every call)."""
+    return -(-channels // 8) * 8
+
+
+def zero_padded(t: torch.Tensor, size: tuple, dtype: torch.dtype,
+                blocks: int = 1) -> torch.Tensor:
+    """``t`` cast to ``dtype`` in the leading corner of a zero tensor of
+    ``size``, channels-last if 4-d; ``blocks`` splits dim 1 of both into
+    that many equal blocks, each padded at its end (the blocks of a concat).
+    One launch where ``size`` is ``t``'s (the cast), else two (fill, copy);
+    differentiable in ``t``."""
+    fmt = _CL if t.dim() == 4 else torch.contiguous_format
+    if tuple(size) == tuple(t.shape):
+        return t.to(dtype, memory_format=fmt)
+    out = torch.empty(size, dtype=dtype, device=t.device, memory_format=fmt).zero_()
+    dst, src = out, t
+    if blocks > 1:
+        dst, src = out.unflatten(1, (blocks, -1)), t.unflatten(1, (blocks, -1))
+    dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+    return out
+
+
 class Conv(nn.Module):
     """A Keras-named conv layer: float32 OIHW weight and bias, applied in the
-    input's dtype with "SAME" padding."""
+    input's dtype with "SAME" padding.
+
+    ``width_in`` and ``width_out`` are the channels its input (each of the
+    input's ``blocks`` equal blocks, for a conv over a concat) and its output
+    are stored at, where more than the params': the weight and bias are then
+    zero-padded at use (:func:`zero_padded`), so the extra output channels
+    are exact zeros and the extra input channels meet zero taps."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, dilation: int = 1,
-                 device=None):
+                 device=None, *, blocks: int = 1, width_in: int | None = None,
+                 width_out: int | None = None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(cout, cin, kernel_size, kernel_size, device=device))
         self.bias = nn.Parameter(torch.empty(cout, device=device))
         self.dilation = dilation
         self.padding = dilation * (kernel_size // 2)
+        self.blocks = blocks
+        self.width_in = width_in or cin // blocks
+        self.width_out = width_out or cout
+        self.padded = self.width_in * blocks != cin or self.width_out != cout
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun_normal weight and zero bias, as Flax initializes ``nn.Conv``."""
@@ -80,12 +120,21 @@ class Conv(nn.Module):
             lecun_normal_(self.weight, generator)
             self.bias.zero_()
 
+    def count_pad(self) -> None:
+        """Count a call that runs on padded channels (``conv.channel_pad``)."""
+        if self.padded:
+            tracing.count("conv.channel_pad", 1)
+
     def forward(self, x: torch.Tensor, valid_h: bool = False) -> torch.Tensor:
         """SAME, or with ``valid_h`` SAME on W and VALID on H: the rows of
         a slab padded with its neighbours' rows (a halo)."""
-        w = self.weight.to(x.dtype, memory_format=_CL)
+        self.count_pad()
+        k = self.weight.shape[-1]
+        w = zero_padded(self.weight, (self.width_out, self.blocks * self.width_in, k, k),
+                        x.dtype, self.blocks)
+        b = zero_padded(self.bias, (self.width_out,), x.dtype)
         padding = (0, self.padding) if valid_h else self.padding
-        return F.conv2d(x, w, self.bias.to(x.dtype), padding=padding, dilation=self.dilation)
+        return F.conv2d(x, w, b, padding=padding, dilation=self.dilation)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +148,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
-def fold_upsample_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def fold_upsample_kernel(weight: torch.Tensor, dtype: torch.dtype,
+                         widths: tuple | None = None) -> torch.Tensor:
     """The (cin, cout, 4, 4) weight ``w`` for which ``F.conv_transpose2d(x, w,
     stride=2, padding=1)`` equals a nearest-x2 upsample (Keras'
     ``UpSampling2D``) followed by a SAME conv with the OIHW 3x3 ``weight``:
@@ -107,9 +157,11 @@ def fold_upsample_kernel(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     i in {a-1, a} and j in {b-1, b} (the 2x2 windows of ``K`` padded by one),
     flipped on both spatial axes and with in and out channels swapped, as a
     transposed conv takes it. Summed in ``weight``'s float32, then rounded to
-    ``dtype`` once, in ``channels_last`` memory."""
+    ``dtype`` once, in ``channels_last`` memory; zero-padded to ``widths``
+    (in, out) where given."""
     k4 = F.avg_pool2d(weight, 2, stride=1, padding=1, divisor_override=1)
-    return k4.flip(-2, -1).transpose(0, 1).to(dtype, memory_format=_CL)
+    k4 = k4.flip(-2, -1).transpose(0, 1)
+    return zero_padded(k4, (*(widths or k4.shape[:2]), *k4.shape[2:]), dtype)
 
 
 class FusedUpsampleConv(Conv):
@@ -144,21 +196,25 @@ class FusedUpsampleConv(Conv):
         """The stride-2 transposed 4x4 conv; ``padding`` as
         ``F.conv_transpose2d``'s (1: the upsample-conv with SAME padding)."""
         tracing.count("upconv.transposed", 1)
-        w = fold_upsample_kernel(self.weight, x.dtype)
-        return F.conv_transpose2d(x, w, self.bias.to(x.dtype), stride=2, padding=padding)
+        self.count_pad()
+        w = fold_upsample_kernel(self.weight, x.dtype, (self.width_in, self.width_out))
+        b = zero_padded(self.bias, (self.width_out,), x.dtype)
+        return F.conv_transpose2d(x, w, b, stride=2, padding=padding)
 
 
 def sigmoid_head(conv: Conv, x: torch.Tensor) -> torch.Tensor:
     """Conv1x1(1 channel) -> sigmoid as a channel contraction (the JAX
     ``SigmoidHead1x1``), through the head kernel. (B, H, W) float32."""
-    return diff_sigmoid_head(x, conv.weight[0, :, 0, 0].to(x.dtype), conv.bias[0])
+    taps = zero_padded(conv.weight[0, :, 0, 0], x.shape[1:2], x.dtype)
+    return diff_sigmoid_head(x, taps, conv.bias[0])
 
 
-def diff_head_taps(conv: Conv, dtype: torch.dtype):
+def diff_head_taps(conv: Conv, x: torch.Tensor):
     """Taps and bias of ``softmax(conv1x1(x))[:, 1] == sigmoid(<x, w> + b)``:
-    the difference of the two classes' 1x1 kernels and biases."""
+    the difference of the two classes' 1x1 kernels and biases, the taps in
+    ``x``'s dtype and zero-padded to its channels."""
     w = conv.weight[:, :, 0, 0]
-    return (w[1] - w[0]).to(dtype), conv.bias[1] - conv.bias[0]
+    return zero_padded(w[1] - w[0], x.shape[1:2], x.dtype), conv.bias[1] - conv.bias[0]
 
 
 class DilatedUNet(nn.Module):
@@ -222,10 +278,15 @@ class DilatedUNet(nn.Module):
         self.batch_shard = None
         self.spatial = None
 
-        def conv(name, cin, cout, k=3, dilation=1, cls=Conv):
-            setattr(self, name, cls(cin, cout, k, dilation, device=device))
+        def conv(name, cin, cout, k=3, dilation=1, cls=Conv, blocks=1, width_in=None,
+                 width_out=None):
+            # Inputs and outputs are activations, stored at lane() channels,
+            # unless stated: the image and the 1x1 heads' outputs.
+            setattr(self, name, cls(cin, cout, k, dilation, device=device, blocks=blocks,
+                                    width_in=width_in or lane(cin // blocks),
+                                    width_out=width_out or lane(cout)))
 
-        conv("down1_conv1", 1, nb)
+        conv("down1_conv1", 1, nb, width_in=1)
         conv("down1_conv2", nb, nb)
         conv("down2_conv1", nb, 2 * nb)
         conv("down2_conv2", 2 * nb, 2 * nb)
@@ -235,12 +296,12 @@ class DilatedUNet(nn.Module):
             conv(f"dilate{i + 1}", 4 * nb if i == 0 else 8 * nb, 8 * nb, dilation=rate)
         for level, feat, below in ((3, 4 * nb, 8 * nb), (2, 2 * nb, 4 * nb), (1, nb, 2 * nb)):
             conv(f"up{level}_conv1", below, feat, cls=FusedUpsampleConv)
-            conv(f"up{level}_conv2", 2 * feat, feat)
+            conv(f"up{level}_conv2", 2 * feat, feat, blocks=2)
             conv(f"up{level}_conv3", feat, feat)
-        conv("output_softmax", nb, 2, k=1)
+        conv("output_softmax", nb, 2, k=1, width_out=2)
         if use_deep_supervision:
-            conv("aux_out1", 4 * nb, 1, k=1)
-            conv("aux_out2", 2 * nb, 1, k=1)
+            conv("aux_out1", 4 * nb, 1, k=1, width_out=1)
+            conv("aux_out2", 2 * nb, 1, k=1, width_out=1)
 
     def init_params(self, generator: torch.Generator) -> "DilatedUNet":
         """Flax's initialization (lecun_normal kernels, zero biases), drawn
@@ -256,7 +317,8 @@ class DilatedUNet(nn.Module):
         activation, its uniforms drawn as (B, H, W, C) so the mask shares the
         activation's channels-last layout (with ``batch_shard``: the global
         batch's, sliced to this process's rows; of a ``sharded`` activation
-        under ``spatial``: the whole tile's, sliced to the slab's rows); None
+        under ``spatial``: the whole tile's, sliced to the slab's rows), then
+        padded with False to the activation's ``lane(C)`` channels; None
         outside training or at rate 0."""
         if not self.training or self.dropout_rate == 0.0:
             return None
@@ -272,7 +334,10 @@ class DilatedUNet(nn.Module):
             u = shard.rows(u)
         if slab is not None:
             u = slab.rows(u, dim=1)
-        return u.permute(0, 3, 1, 2) < 1.0 - self.dropout_rate
+        keep = u < 1.0 - self.dropout_rate
+        if lane(c) > c:
+            keep = F.pad(keep, (0, lane(c) - c))
+        return keep.permute(0, 3, 1, 2)
 
     def _apply_dropout(self, x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
         if keep is None:
@@ -281,10 +346,13 @@ class DilatedUNet(nn.Module):
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def _dropout(self, x: torch.Tensor, generator: torch.Generator | None,
-                 sharded: bool = False) -> torch.Tensor:
+                 sharded: bool = False, channels: int | None = None) -> torch.Tensor:
         """Flax ``nn.Dropout``: keep where ``uniform < 1 - rate``, scaled by
-        1 / (1 - rate); the identity outside training or at rate 0."""
-        return self._apply_dropout(x, self._keep_mask(x.shape, generator, x.device, sharded))
+        1 / (1 - rate); the identity outside training or at rate 0.
+        ``channels``: the activation's own, where ``x`` stores it at more."""
+        b, c, h, w = x.shape
+        return self._apply_dropout(
+            x, self._keep_mask((b, channels or c, h, w), generator, x.device, sharded))
 
     def _block(self, names: tuple[str, str], x: torch.Tensor) -> torch.Tensor:
         """An encoder ``_ConvBlock``: two Conv3x3-ReLU."""
@@ -355,11 +423,12 @@ class DilatedUNet(nn.Module):
         for i in range(len(self.dilation_rates)):
             d = F.relu(getattr(self, f"dilate{i + 1}")(d))
             if i == 0:
-                d = self._dropout(d, generator)
+                d = self._dropout(d, generator, channels=8 * self.init_nb)
             taps.append(d)
         bottleneck = sum(taps)
-        up3 = self._dropout(self._up_convs(3, down3, bottleneck), generator)
-        up2 = self._dropout(self._up_convs(2, down2, up3), generator, self._sharded(2))
+        nb = self.init_nb
+        up3 = self._dropout(self._up_convs(3, down3, bottleneck), generator, channels=4 * nb)
+        up2 = self._dropout(self._up_convs(2, down2, up3), generator, self._sharded(2), 2 * nb)
         return down1, up2, up3
 
     def _up1_keep(self, down1: torch.Tensor, generator: torch.Generator | None):
@@ -379,7 +448,7 @@ class DilatedUNet(nn.Module):
         # the meta functions guess (row-major) unless it is stated here.
         up1 = up1.contiguous(memory_format=_CL)
         if self.fast_head:
-            return diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1.dtype))
+            return diff_sigmoid_head(up1, *diff_head_taps(self.output_softmax, up1))
         logits = self.output_softmax(up1)
         return torch.softmax(logits.to(torch.float32), dim=1)[:, 1]
 
@@ -391,10 +460,13 @@ class DilatedUNet(nn.Module):
     def trunk(self, x: torch.Tensor, generator: torch.Generator | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Everything but the heads: the decoder outputs (up1, up2, up3) in
-        the compute dtype, channels-last. ``generator`` draws the dropout
-        masks in training mode."""
+        the compute dtype, channels-last, at ``init_nb`` x (1, 2, 4) channels
+        (their padding taken off). ``generator`` draws the dropout masks in
+        training mode."""
         down1, up2, up3 = self._to_level1(x, generator)
-        return self._up1(down1, up2, self._up1_keep(down1, generator)), up2, up3
+        up1 = self._up1(down1, up2, self._up1_keep(down1, generator))
+        return tuple(t[:, :n * self.init_nb].contiguous(memory_format=_CL)
+                     for t, n in ((up1, 1), (up2, 2), (up3, 4)))
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         h, w = x.shape[-2:]

@@ -217,7 +217,7 @@ from adipose_tpu_torch.cli.main import _load_classifier, _load_segmenter, segmen
 from adipose_tpu_torch.core.hostio import thread_map
 from adipose_tpu_torch.models.convert import torch_inception_to_flax, torch_unet_to_flax
 from adipose_tpu_torch.models.inception import InceptionV3Classifier
-from adipose_tpu_torch.models.unet import DilatedUNet, diff_head_taps
+from adipose_tpu_torch.models.unet import DilatedUNet, diff_head_taps, lane
 from adipose_tpu_torch.ops.cuda import build
 from adipose_tpu_torch.ops.cuda.percentile import (percentile_normalize_u8,
                                                    percentile_normalize_u8_plain)
@@ -255,6 +255,9 @@ from adipose_tpu_torch.wsi.pipeline import DualModelWSIPipeline
 
 SEED = 865
 BATCH, SIZE, INIT_NB = 16, 1024, 44
+# The channels level 1 is stored at (the next multiple of 8), which the main
+# head's kernels B and B' read.
+LEVEL1_NB = lane(INIT_NB)
 REQUESTS = 3
 # Kernel A: the normalized output must be bit-equal (both round (x - mean) /
 # denom once, IEEE); float-input stats differ only in the double summation order.
@@ -282,7 +285,7 @@ HEAD_BWD_DBIAS_RTOL = 1e-5
 # g * (1 - p) * p in another order, and its matmul sums in another order.
 HEAD_AUTOGRAD_RTOL = 1e-5
 # The previous designs' device times of kernels I and B' at the timing
-# shapes, for reference (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
+# shapes (B' at INIT_NB channels), for reference (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
 PREVIOUS_DESIGN_MS = {"ident_hwbc": 1.5561, "diff_sigmoid_head_backward": 0.3249}
 # Profiler sessions of each probe chain at most, while one leaves launches
 # unrecorded (the launch check itself reads the wrappers' counters).
@@ -471,9 +474,12 @@ def phase_zscore(dev, g) -> float:
 
 
 def phase_head(dev, g) -> float:
-    """Kernel B vs plain at the main and aux heads' shapes; max abs error."""
+    """Kernel B vs plain at the main head's shape as the model stores it
+    (level 1 at ``LEVEL1_NB`` channels) and at ``INIT_NB``, and at the aux
+    heads' shapes; max abs error."""
     worst = 0.0
-    for c, s in ((INIT_NB, SIZE), (4 * INIT_NB, SIZE // 4), (2 * INIT_NB, SIZE // 2)):
+    for c, s in ((LEVEL1_NB, SIZE), (INIT_NB, SIZE), (4 * INIT_NB, SIZE // 4),
+                 (2 * INIT_NB, SIZE // 2)):
         x = torch.randn((BATCH, s, s, c), device=dev, generator=g).relu_()
         x = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels-last (B, C, H, W)
         w = (torch.randn(c, device=dev, generator=g) / c ** 0.5).to(torch.bfloat16)
@@ -525,11 +531,12 @@ def phase_head_backward(dev, g) -> float:
     worst = 0.0
     bf16, f32 = torch.bfloat16, torch.float32
     # (batch, C, H, W, dtype, elements of storage before x)
-    shapes = [(TRAIN_BATCH, INIT_NB, SIZE, SIZE, bf16, 0),
+    shapes = [(TRAIN_BATCH, LEVEL1_NB, SIZE, SIZE, bf16, 0),  # the main head, as stored
+              (TRAIN_BATCH, INIT_NB, SIZE, SIZE, bf16, 0),
               (TRAIN_BATCH, 4 * INIT_NB, SIZE // 4, SIZE // 4, bf16, 0),
               (TRAIN_BATCH, 2 * INIT_NB, SIZE // 2, SIZE // 2, bf16, 0),
               (TRAIN_BATCH, INIT_NB, SIZE, SIZE, f32, 0),
-              (8, INIT_NB, SIZE, SIZE, bf16, 0),  # the batch-8 training step's main head
+              (8, LEVEL1_NB, SIZE, SIZE, bf16, 0),  # the batch-8 training step's main head
               (TRAIN_BATCH, 37, SIZE // 2, SIZE // 2, bf16, 0),  # period 37: general path
               (TRAIN_BATCH, INIT_NB, SIZE // 2, SIZE // 2, bf16, 1),  # x unaligned: general
               (1, INIT_NB, 999, 1001, bf16, 0)]  # odd pixel count: ends inside a period
@@ -764,8 +771,9 @@ def phase_slice(dev, run: Path, smi: str) -> dict:
     with torch.inference_mode():
         tiles = torch.from_numpy(requests[0]).to(dev)
         x, _ = fused_zscore_normalize_plain(tiles, mean, std, out_dtype=torch.bfloat16)
-        up1, _, _ = model.trunk(x)
-        ref = diff_sigmoid_head_plain(up1, *diff_head_taps(model.output_softmax, up1.dtype))
+        # level 1 as stored, padded channels and all: what kernel B read
+        up1 = model._up1(*model._to_level1(x, None)[:2], None)
+        ref = diff_sigmoid_head_plain(up1, *diff_head_taps(model.output_softmax, up1))
     err = float(np.abs(preds[0] - ref.cpu().numpy()).max())
     if not err <= SLICE_ATOL:
         raise AssertionError(f"slice vs plain z-score + head: max abs err {err} > {SLICE_ATOL}")
@@ -3438,21 +3446,22 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
           f"call by torch.profiler; 70%-one-value batches: kernel {p_bg:.4f} ms by events, "
           f"{p_bg_dev} ms device [{smi}]")
     del tiles, background
-    x = torch.randn((BATCH, SIZE, SIZE, INIT_NB), device=dev, generator=g).relu_()
+    # Kernel B at the main path's head: level 1 as stored, LEVEL1_NB channels.
+    x = torch.randn((BATCH, SIZE, SIZE, LEVEL1_NB), device=dev, generator=g).relu_()
     x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-    w = (torch.randn(INIT_NB, device=dev, generator=g) / INIT_NB ** 0.5).to(torch.bfloat16)
+    w = (torch.randn(LEVEL1_NB, device=dev, generator=g) / LEVEL1_NB ** 0.5).to(torch.bfloat16)
     bias = torch.tensor(0.1, device=dev)
     head = lambda t: diff_sigmoid_head(t, w, bias)  # noqa: E731
     b_ms, b_plain = in_turns(lambda t: diff_sigmoid_head_plain(t, w, bias), head, [x], 10)
     b_dev = profiled_ms(head, [x], 10, ("head_kernel",))
-    print(f"timing diff_sigmoid_head ({BATCH},{INIT_NB},{SIZE},{SIZE}) bf16: "
+    print(f"timing diff_sigmoid_head ({BATCH},{LEVEL1_NB},{SIZE},{SIZE}) bf16: "
           f"kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms by CUDA events; device time "
           f"{b_dev} ms per call by torch.profiler [{smi}]")
     del x
 
     # Kernel B' at the training path's main head: batch 2.
     nt = TRAIN_BATCH * SIZE * SIZE
-    xt = torch.randn((TRAIN_BATCH, SIZE, SIZE, INIT_NB), device=dev, generator=g).relu_()
+    xt = torch.randn((TRAIN_BATCH, SIZE, SIZE, LEVEL1_NB), device=dev, generator=g).relu_()
     xt = xt.to(torch.bfloat16).permute(0, 3, 1, 2)
     pt = diff_sigmoid_head_forward(xt, w, bias)
     cot = [torch.randn((TRAIN_BATCH, SIZE, SIZE), device=dev, generator=g) for _ in range(3)]
@@ -3462,15 +3471,16 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
     bb_dev = profiled_ms(bwd, cot, 10, ("head_bwd_kernel", "head_bwd_finalize"))
     # x read, dx written (bf16), g and p read (f32), taps and dw; a multiply
     # for dx and a multiply-add for dw per element
-    bb_bound = bound(2 * nt * INIT_NB * 2 + 2 * nt * 4 + 2 * INIT_NB * 2 + 4,
-                     3 * nt * INIT_NB + 3 * nt)
-    plan = head_bwd_plan(INIT_NB, 2, xt.data_ptr(), 0)  # dx: a fresh, aligned allocation
-    print(f"timing diff_sigmoid_head_backward ({TRAIN_BATCH},{INIT_NB},{SIZE},{SIZE}) bf16, "
+    bb_bound = bound(2 * nt * LEVEL1_NB * 2 + 2 * nt * 4 + 2 * LEVEL1_NB * 2 + 4,
+                     3 * nt * LEVEL1_NB + 3 * nt)
+    plan = head_bwd_plan(LEVEL1_NB, 2, xt.data_ptr(), 0)  # dx: a fresh, aligned allocation
+    print(f"timing diff_sigmoid_head_backward ({TRAIN_BATCH},{LEVEL1_NB},{SIZE},{SIZE}) bf16, "
           f"{plan.path} path: kernel {bb_ms:.4f} ms, plain {bb_plain:.4f} ms by CUDA events; "
           f"device time {bb_dev} ms per call by torch.profiler, "
           f"{100 * bb_bound[0] / bb_dev if bb_dev else 0:.1f}% of its bound "
           f"{bb_bound[0]:.4f} ms; previous design "
-          f"{PREVIOUS_DESIGN_MS['diff_sigmoid_head_backward']} ms device [{smi}]")
+          f"{PREVIOUS_DESIGN_MS['diff_sigmoid_head_backward']} ms device at {INIT_NB} "
+          f"channels [{smi}]")
     del xt, pt, cot
 
     # Kernel D at the augmentation's shape: batch 2 of 1024^2 float32.
@@ -3506,7 +3516,8 @@ def phase_kernel_timing(dev, g, smi: str) -> dict:
         "fused_zscore_normalize": (a_ms, a_plain, a_dev, bound(n * 3 + BATCH * 12, 8 * n), None),
         # bf16 activation and taps in, f32 out; a multiply-add per channel
         "diff_sigmoid_head": (b_ms, b_plain, b_dev,
-                              bound(n * INIT_NB * 2 + INIT_NB * 2 + n * 4, 2 * INIT_NB * n),
+                              bound(n * LEVEL1_NB * 2 + LEVEL1_NB * 2 + n * 4,
+                                    2 * LEVEL1_NB * n),
                               None),
         # u8 in, f32 out; ~6 operations a pixel (bin, subtract, divide, clip)
         "percentile_normalize_u8": (p_ms, p_plain, p_dev, bound(n * 5, 6 * n), None),

@@ -287,7 +287,8 @@ def test_segment_batch_records_its_tree_and_bytes(run):
     assert len({s["request"] for s in spans}) == 2
     assert rec["counters"] == {"h2d_bytes": 2 * 4 * SIZE * SIZE,  # padded to the batch
                                "d2h_bytes": out.nbytes + 4 * SIZE * SIZE * 4,
-                               "upconv.transposed": 2 * 3}
+                               "upconv.transposed": 2 * 3,
+                               "conv.channel_pad": 2 * 6}  # init_nb 4: level 1 at 8
     start = prof.profiler.kineto_results.trace_start_ns()
     enclosed(spans, prof.events(), "model.forward", "aten::convolution", start)
     no_span_in_session(prof, spans)
@@ -311,7 +312,7 @@ def test_the_evaluators_direct_loop_records_the_request_steps_spans_and_bytes(ru
     check_records(rec["spans"])
     assert rec["counters"] == {"h2d_bytes": 4 * SIZE * SIZE * 4,  # float32, padded to 4
                                "d2h_bytes": 3 * SIZE * SIZE * 2,  # float16, the 3 real maps
-                               "upconv.transposed": 3}
+                               "upconv.transposed": 3, "conv.channel_pad": 6}
     assert [p.dtype for p in preds] == [np.float32] * 3
 
 
@@ -412,7 +413,9 @@ def test_the_fused_train_step_records_its_tree():
     assert tree(spans) == [("entry.h2d", []), ("entry.h2d", []), ("train.augment", []),
                            ("train.step", children)] * 2
     check_records(spans)
-    assert rec["counters"] == {"h2d_bytes": 2 * (images.nbytes + masks.nbytes)}
+    # level 1's six convs and the softmax head's 1x1 conv read 4 channels stored at 8
+    assert rec["counters"] == {"h2d_bytes": 2 * (images.nbytes + masks.nbytes),
+                               "conv.channel_pad": 2 * 7}
     start = prof.profiler.kineto_results.trace_start_ns()
     enclosed(spans, prof.events(), "train.forward", "aten::convolution", start)
     enclosed(spans, prof.events(), "train.backward", "aten::convolution_backward", start)
@@ -428,7 +431,7 @@ def test_a_unet_forward_runs_three_transposed_upconvs_and_counts_them():
     model = DilatedUNet(init_nb=4).init_params(torch.Generator().manual_seed(4)).eval()
     with session() as prof, torch.inference_mode():
         model(torch.from_numpy(tiles(2)).float())
-    assert tracing.records()["counters"] == {"upconv.transposed": 3}
+    assert tracing.records()["counters"] == {"upconv.transposed": 3, "conv.channel_pad": 6}
     assert upconv_ops(prof) == ["aten::conv_transpose2d"] * 3
 
 
@@ -572,5 +575,7 @@ def test_a_full_width_unet_forward_on_the_card_launches_no_upsample(card):
     kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert any("dgrad" in k or "fprop" in k or "conv" in k.lower() for k in kernels), kernels
     assert not [k for k in kernels if "upsample" in k]
-    assert tracing.records()["counters"] == {"upconv.transposed": 3}
+    # level 1 stored at 48 channels: cuDNN pads no map to a multiple of 8
+    assert not [k for k in kernels if "AddPadding" in k]
+    assert tracing.records()["counters"] == {"upconv.transposed": 3, "conv.channel_pad": 6}
     assert upconv_ops(prof) == ["aten::conv_transpose2d"] * 3

@@ -16,13 +16,14 @@ import torch.nn.functional as F
 from adipose_tpu.models.unet import DilatedUNet as JaxUNet
 from adipose_tpu_torch.models.convert import (flax_unet_to_torch, load_flax_npz,
                                               save_flax_npz, torch_unet_to_flax)
-from adipose_tpu_torch.models.unet import DilatedUNet, FusedUpsampleConv
+from adipose_tpu_torch.models.unet import DilatedUNet, FusedUpsampleConv, fold_upsample_kernel
+from adipose_tpu_torch.ops.cuda.unet_kernels import diff_sigmoid_head
 
 TESTS = Path(__file__).parent
 VARIANTS = {
     "default": dict(),
     "ds": dict(use_deep_supervision=True),
-    "lane_pad0": dict(),  # lane padding is TPU-only: the port has one unpadded graph
+    "lane_pad0": dict(),  # the port has one graph: it pads by models/unet.py:lane, not lane_pad
     "slow_head": dict(fast_head=False),
 }
 
@@ -164,3 +165,165 @@ def test_fused_upsample_conv_equals_upsample_then_conv(b, cin, cout, h, w):
         assert torch.equal(conv(x), got[0])
     for name, a, e in zip(("y", "dx", "dweight", "dbias"), got, want):
         torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# -- level-1 channels stored at lane() width -----------------------------------
+
+CL = torch.channels_last
+
+
+def plain_unet(p: dict, x: torch.Tensor, gen: torch.Generator | None = None,
+               rate: float = 0.3) -> dict:
+    """The U-Net with every activation at its params' channels, from a state
+    dict ``p``, float32: the reference the padded model is held to. The
+    up-convs run as the transposed 4x4 conv where autograd does not record,
+    as two ops where it does; with ``gen`` dropout draws the model's
+    (B, H, W, C) uniforms in its order."""
+    def conv(name, t, dilation=1):
+        w = p[name + ".weight"]
+        return F.conv2d(t, w.to(memory_format=CL), p[name + ".bias"],
+                        padding=dilation * (w.shape[-1] // 2), dilation=dilation)
+
+    def up_conv(name, t):
+        if torch.is_grad_enabled():
+            return conv(name, F.interpolate(t, scale_factor=2, mode="nearest"))
+        return F.conv_transpose2d(t, fold_upsample_kernel(p[name + ".weight"], t.dtype),
+                                  p[name + ".bias"], stride=2, padding=1)
+
+    def drop(t):
+        if gen is None:
+            return t
+        b, c, h, w = t.shape
+        keep = torch.rand((b, h, w, c), generator=gen).permute(0, 3, 1, 2) < 1.0 - rate
+        return torch.where(keep, t / (1.0 - rate), torch.zeros(()))
+
+    def block(names, t):
+        for name in names:
+            t = F.relu(conv(name, t))
+        return t
+
+    x = x.unsqueeze(1).contiguous(memory_format=CL)
+    down1 = block(("down1_conv1", "down1_conv2"), x)
+    down2 = block(("down2_conv1", "down2_conv2"), F.max_pool2d(down1, 2))
+    down3 = block(("down3_conv1", "down3_conv2"), F.max_pool2d(down2, 2))
+    d, taps = F.max_pool2d(down3, 2), []
+    for i, rate_i in enumerate((1, 2, 4, 8, 16, 32)):
+        d = F.relu(conv(f"dilate{i + 1}", d, rate_i))
+        taps.append(drop(d) if i == 0 else d)
+        d = taps[-1]
+    y = sum(taps)
+    ups = {}
+    for level, skip in ((3, down3), (2, down2), (1, down1)):
+        y = torch.cat([skip, F.relu(up_conv(f"up{level}_conv1", y))], dim=1)
+        y = drop(block((f"up{level}_conv2", f"up{level}_conv3"), y))
+        ups[level] = y
+    w = p["output_softmax.weight"][:, :, 0, 0]
+    out = {"main_out": diff_sigmoid_head(ups[1], w[1] - w[0],
+                                         p["output_softmax.bias"][1] - p["output_softmax.bias"][0])}
+    for name, level in (("aux_out1", 3), ("aux_out2", 2)):
+        aux = diff_sigmoid_head(ups[level].contiguous(memory_format=CL),
+                                p[name + ".weight"][0, :, 0, 0], p[name + ".bias"][0])
+        out[name] = F.interpolate(aux[:, None], size=tuple(x.shape[-2:]), mode="bilinear",
+                                  align_corners=False)[:, 0]
+    return out
+
+
+def seeded_unet(nb: int) -> DilatedUNet:
+    model = DilatedUNet(init_nb=nb, compute_dtype=torch.float32, use_deep_supervision=True)
+    gen = torch.Generator().manual_seed(nb)
+    model.init_params(gen)
+    with torch.no_grad():  # nonzero biases, so a padded channel that reads one shows
+        for name, t in model.named_parameters():
+            if name.endswith(".bias"):
+                t.normal_(0.0, 0.1, generator=gen)
+    return model
+
+
+@pytest.mark.parametrize("nb", [4, 12, 8, 5])
+def test_padded_channels_give_the_unpadded_function_bit_for_bit(nb):
+    """Activations whose channels are not a multiple of 8 are stored at the
+    next multiple (4 -> 8 and 12 -> 16 at level 1; 5 pads every level; 8
+    pads none), zeros in the extra channels: the forward without autograd
+    and the training forward with dropout and deep supervision equal the
+    unpadded function's bit for bit. So do the parameter gradients, but for
+    the order of the sums: the CPU's weight-gradient kernels block their
+    reductions by channel count, so a padded conv may add the same products
+    in another order. Each gradient is held to 16 float32 ulps of its
+    leaf's largest (the reorderings read at most 6 here, in
+    ``up1_conv1.weight`` at init_nb 5; 4.5 in ``up1_conv3.weight`` at 12;
+    1.75 in ``up1_conv2.weight`` at 4; a misplaced block or a channel that
+    leaks reads O(1)). ``plain_unet`` shares the port's upsample fold and
+    head kernel; the check independent of the port is the JAX comparisons
+    at init_nb 4, which now run padded: ``test_forward_matches_golden_unet``,
+    ``test_variant_forwards_match_golden``, ``test_bf16_forward_matches_live_jax``
+    and ``tests/test_torch_train.py::test_fused_train_step_matches_jax``."""
+    model = seeded_unet(nb)
+    params = {k: v.detach().clone().requires_grad_() for k, v in model.named_parameters()}
+    x = torch.randn(2, 32, 32, generator=torch.Generator().manual_seed(7))
+    width = -(-nb // 8) * 8
+
+    model.eval()
+    with torch.no_grad():
+        got, want = model(x), plain_unet(params, x)
+        down1, up2, _ = model._to_level1(x, None)
+        up1 = model._up1(down1, up2, None)
+    for head in want:
+        assert torch.equal(got[head], want[head]), head
+    assert down1.shape[1] == up1.shape[1] == width
+    assert not down1[:, nb:].any() and not up1[:, nb:].any()
+
+    model.train()
+    got = model(x, torch.Generator().manual_seed(9))
+    want = plain_unet(params, x, torch.Generator().manual_seed(9))
+    g = torch.Generator().manual_seed(11)
+    cot = {k: torch.randn(v.shape, generator=g) for k, v in want.items()}
+    sum((got[k] * cot[k]).sum() for k in cot).backward()
+    sum((want[k] * cot[k]).sum() for k in cot).backward()
+    for head in want:
+        assert torch.equal(got[head], want[head]), head
+    for name, t in model.named_parameters():
+        want_grad = params[name].grad
+        ulp = torch.finfo(torch.float32).eps * want_grad.abs().max()
+        assert (t.grad - want_grad).abs().max() <= 16 * ulp, name
+    down1, up2, _ = model._to_level1(x, torch.Generator().manual_seed(9))
+    up1 = model._up1(down1, up2, model._up1_keep(down1, torch.Generator().manual_seed(9)))
+    assert up1.shape[1] == width and not up1[:, nb:].any()
+
+
+@pytest.mark.parametrize("nb,padded_convs", [(4, 6), (8, 0)])
+def test_padding_keeps_param_shapes_and_counts_its_convs(jax_params, tmp_path, nb,
+                                                          padded_convs):
+    """The params, the state dict, the Flax round trip and a torch.export
+    program's parameters keep their (..., init_nb) shapes; a forward counts
+    ``conv.channel_pad`` once for each conv that runs on padded channels:
+    level 1's six at init_nb 4 (stored at 8), none at 8. The exported
+    program gives the eager forward's maps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adipose_tpu_torch.core import tracing
+
+    model = DilatedUNet(init_nb=nb, compute_dtype=torch.float32)
+    model.init_params(torch.Generator().manual_seed(3)).eval()
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert shapes["down1_conv1.weight"] == (nb, 1, 3, 3)
+    assert shapes["up1_conv2.weight"] == (nb, 2 * nb, 3, 3)
+    assert shapes["up1_conv1.bias"] == (nb,) and shapes["output_softmax.weight"] == (2, nb, 1, 1)
+    path = save_flax_npz(torch_unet_to_flax(model.state_dict()), tmp_path / "params.npz")
+    back = flax_unet_to_torch(load_flax_npz(path))
+    assert {k: tuple(v.shape) for k, v in back.items()} == shapes
+    x = torch.randn(1, 32, 32, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        program = torch.export.export(model, (x,), strict=False)
+        assert {k: tuple(v.shape) for k, v in program.state_dict.items()} == shapes
+        want = model(x)
+        assert torch.equal(program.module()(x), want)
+
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), torch.inference_mode():
+            model(x)
+        counters = tracing.records()["counters"]
+    finally:
+        tracing.clear()
+    assert counters.get("conv.channel_pad", 0) == padded_convs
+    assert counters["upconv.transposed"] == 3

@@ -21,6 +21,18 @@ A slide chunk goes through these stages:
      segmentation;
   7. the artifacts of ``adipose pipeline`` (:meth:`run_file`, :meth:`run_files`).
 
+While a profiler records (:mod:`adipose_tpu_torch.core.tracing`), a chunk
+records the spans ``cascade.gate`` (QC and the gate's batches, with stream
+time), ``cascade.gate_wait`` (the host's wait for their result),
+``cascade.segment`` (enqueueing the positive batches), ``cascade.blend``
+(the weight canvas, each accumulation and its stripe flush, with stream
+time) and ``cascade.finish`` (the wait for the stripes, the assembly and
+the widening); and the counters ``cascade.tiles``, ``cascade.good_tiles``,
+``cascade.positive_tiles``, ``cascade.segment_slots`` (the U-Net's batch
+slots, padding included), ``cascade.canvas_builds`` (weight canvases built,
+not found in the cache) and ``d2h_bytes`` / ``d2h_pinned_bytes`` of its
+copies back.
+
 Tiles reach both gates as uint8: the JAX package casts them to float32
 first, which gives equal results for integer values at a quarter of the
 bytes. Every device operation runs in order on the current CUDA stream;
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from adipose_tpu_torch.core import tracing
 from adipose_tpu_torch.core.host_copy import HostCopy, copy_in_pinned
 from adipose_tpu_torch.ops.blend import (
     accumulate_predictions,
@@ -72,6 +85,12 @@ class PipelineResult:
     # exact u8 PNG payload when transfer_dtype='uint8' (else None); already
     # quantized on the device, so writers emit it as it is
     probability_u8: np.ndarray | None = None
+    # the routing of each tile, in tile order: (n_tiles, 2) int32 (y, x)
+    # origins in the padded chunk, the QC verdict, and the gate's
+    # probability (computed for every tile, QC-good or not)
+    positions: np.ndarray | None = None
+    is_good: np.ndarray | None = None
+    gate_prob: np.ndarray | None = None
 
 
 @dataclass
@@ -108,6 +127,9 @@ class _PendingRun:
     timings: dict
     stripes: list  # [(y0, HostCopy of the finalized stripe)]
     hs: int        # stripe height
+    positions: np.ndarray
+    is_good: np.ndarray
+    gate_prob: np.ndarray
 
 
 class DualModelWSIPipeline:
@@ -257,17 +279,27 @@ class DualModelWSIPipeline:
         # ones); one stacked result, one copy to the host.
         t0 = time.time()
         outs = []
-        for idx, _ in self._chunk_indices(np.arange(len(positions))):
-            tiles = self._tiles(slide_dev, tiles_host, positions, self._share(idx))
-            good = classify_tiles_batch(tiles, *self.qc_args)["is_good"]
-            prob = self.classifier_predict(self.classifier_variables, tiles)
-            outs.append(self._gathered(
-                torch.stack([good.to(torch.float32), prob.to(torch.float32)]), 1))
-        result = HostCopy.start(torch.cat(outs, dim=1))
+        with tracing.span("cascade.gate", device=True):
+            for idx, _ in self._chunk_indices(np.arange(len(positions))):
+                tiles = self._tiles(slide_dev, tiles_host, positions, self._share(idx))
+                good = classify_tiles_batch(tiles, *self.qc_args)["is_good"]
+                prob = self.classifier_predict(self.classifier_variables, tiles)
+                outs.append(self._gathered(
+                    torch.stack([good.to(torch.float32), prob.to(torch.float32)]), 1))
+            result = self._copy_back(torch.cat(outs, dim=1))
         timings["qc_classify_s"] = time.time() - t0
         return _PendingQC(gray_shape=gray.shape, h=h, w=w, n_tiles=len(positions),
                           positions=positions, result=result, slide_dev=slide_dev,
                           tiles_host=tiles_host, timings=timings)
+
+    @staticmethod
+    def _copy_back(t: torch.Tensor) -> HostCopy:
+        """Start ``t``'s copy to the host, counting its bytes."""
+        copy = HostCopy.start(t)
+        tracing.count("d2h_bytes", t.nbytes)
+        if copy.ready is not None:
+            tracing.count("d2h_pinned_bytes", t.nbytes)
+        return copy
 
     def _chunk_indices(self, index_list):
         """Yield (batch-padded index array, n valid) chunks."""
@@ -283,6 +315,7 @@ class DualModelWSIPipeline:
         key = tuple(gray_shape)
         wsum = self._wsum.pop(key, None)
         if wsum is None:
+            tracing.count("cascade.canvas_builds", 1)
             wsum = torch.zeros(key, dtype=torch.float32, device=self.device)
             b = self.batch_size
             for idx, n in self._chunk_indices(np.arange(len(positions))):
@@ -302,15 +335,17 @@ class DualModelWSIPipeline:
         t0 = time.time()
         # pad entries sit only at the tail of the last batch (edge pad), so
         # the [:n_tiles] prefix is exactly the real tiles
-        flat = qc.result.numpy()[:, :n_tiles]
+        with tracing.span("cascade.gate_wait"):
+            flat = qc.result.numpy()[:, :n_tiles]
         good = flat[0] > 0.5
-        probs = np.where(good, flat[1], 0.0).astype(np.float32)
-        positive = good & (probs >= self.classifier_threshold)
+        gate_prob = flat[1].astype(np.float32)
+        positive = good & (gate_prob >= self.classifier_threshold)
         timings["qc_wait_s"] = time.time() - t0
 
         t0 = time.time()
-        acc = torch.zeros(qc.gray_shape, dtype=torch.float32, device=self.device)
-        wsum = self._weight_canvas(qc.gray_shape, positions)
+        with tracing.span("cascade.blend", device=True):
+            acc = torch.zeros(qc.gray_shape, dtype=torch.float32, device=self.device)
+            wsum = self._weight_canvas(qc.gray_shape, positions)
         timings["blend_weights_s"] = time.time() - t0
 
         t0 = time.time()
@@ -341,44 +376,64 @@ class DualModelWSIPipeline:
             while next_s < len(y0s) and need[next_s] <= done_batches:
                 y0 = int(y0s[next_s])
                 stripe = finalize_blend_stripe(acc, wsum, y0, hs, out_dtype=self.transfer_dtype)
-                stripes.append((y0, HostCopy.start(stripe)))
+                stripes.append((y0, self._copy_back(stripe)))
                 next_s += 1
 
-        flush(0)
-        for done, (idx, n) in enumerate(self._chunk_indices(pos_idx), start=1):
-            tiles = self._tiles(qc.slide_dev, qc.tiles_host, positions, self._share(idx))
-            seg = self._gathered(self.segmenter_predict(self.segmenter_params, tiles), 0)
-            accumulate_predictions(acc, seg, positions[idx], self.weight_map, np.arange(b) < n)
-            flush(done)
+        with tracing.span("cascade.segment"):
+            with tracing.span("cascade.blend", device=True):
+                flush(0)
+            for done, (idx, n) in enumerate(self._chunk_indices(pos_idx), start=1):
+                tiles = self._tiles(qc.slide_dev, qc.tiles_host, positions, self._share(idx))
+                seg = self._gathered(self.segmenter_predict(self.segmenter_params, tiles), 0)
+                with tracing.span("cascade.blend", device=True):
+                    accumulate_predictions(acc, seg, positions[idx], self.weight_map,
+                                           np.arange(b) < n)
+                    flush(done)
         # in pipelined mode the next chunk's work overlaps the device drain
         if sync_segment and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         timings["segment_s"] = time.time() - t0
+        n_good, n_positive = int(good.sum()), int(positive.sum())
+        tracing.count("cascade.tiles", n_tiles)
+        tracing.count("cascade.good_tiles", n_good)
+        tracing.count("cascade.positive_tiles", n_positive)
+        tracing.count("cascade.segment_slots", b * -(-len(pos_idx) // b))
         return _PendingRun(gray_shape=qc.gray_shape, h=qc.h, w=qc.w, n_tiles=n_tiles,
-                           n_good=int(good.sum()), n_positive=int(positive.sum()),
-                           timings=timings, stripes=stripes, hs=hs)
+                           n_good=n_good, n_positive=n_positive, timings=timings,
+                           stripes=stripes, hs=hs, positions=positions, is_good=good,
+                           gate_prob=gate_prob)
 
     def _finish(self, st: _PendingRun) -> PipelineResult:
         """Host-side completion: wait for the stripe copies, assemble the
         map, close the timing attribution."""
         timings = st.timings
         t0 = time.time()
-        parts = [(y0, copy.numpy()) for y0, copy in st.stripes]
-        buf = np.empty(st.gray_shape, dtype=parts[0][1].dtype)
-        for y0, part in parts:
-            buf[y0 : y0 + st.hs] = part
-        prob_u8 = None
-        if self.transfer_dtype == "uint8":
-            prob_u8 = buf[: st.h, : st.w]
-            full = prob_u8.astype(np.float32) / 255.0
-        else:
-            full = buf[: st.h, : st.w].astype(np.float32)
+        with tracing.span("cascade.finish"):
+            parts = [(y0, copy.numpy()) for y0, copy in st.stripes]
+            prob_u8 = None
+            if self.transfer_dtype == "uint8":
+                buf = np.empty(st.gray_shape, dtype=np.uint8)
+                for y0, part in parts:
+                    buf[y0 : y0 + st.hs] = part
+                prob_u8 = buf[: st.h, : st.w]
+                full = prob_u8.astype(np.float32) / 255.0
+            else:
+                # each stripe widened straight into the map by torch's
+                # threaded copy: numpy's one-thread cast and a float16
+                # staging canvas took ~4x the host time on a 6144^2 chunk
+                out = torch.empty((st.h, st.w), dtype=torch.float32)
+                for y0, part in parts:
+                    rows = min(st.hs, st.h - y0)
+                    if rows > 0:
+                        out[y0 : y0 + rows].copy_(torch.from_numpy(part[:rows, : st.w]))
+                full = out.numpy()
         # the stripes were enqueued with the segmentation; blend_s is the
         # weight canvas plus the wait for the copies and the assembly
         timings["blend_s"] = time.time() - t0 + timings.pop("blend_weights_s")
         return PipelineResult(probability_map=full, n_tiles=st.n_tiles, n_good=st.n_good,
                               n_positive=st.n_positive, timings=timings,
-                              probability_u8=prob_u8)
+                              probability_u8=prob_u8, positions=st.positions,
+                              is_good=st.is_good, gate_prob=st.gate_prob)
 
     @staticmethod
     def _read_image(image_path: str | Path) -> np.ndarray:

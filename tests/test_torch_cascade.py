@@ -237,6 +237,25 @@ def test_host_tiling_and_u8_transfer_match_device_tiling(weights):
     assert np.abs(got.probability_u8.astype(int) - want_u8).max() <= 1
 
 
+@pytest.mark.parametrize("device_tiling", [True, False])
+def test_the_routing_of_each_tile_agrees_with_the_counts(weights, device_tiling):
+    _, pipe = _pipelines(weights, tile_size=64, batch_size=4, device_tiling=device_tiling)
+    slides = [_slide(), _slide((100, 150), seed=3)]  # the second is cut with clamped origins
+    pipe.classifier_threshold = float(np.median(
+        [p for r in pipe.run_many(slides) for p in r.gate_prob[r.is_good]]))
+    for slide, r in zip(slides, pipe.run_many(slides)):
+        positions = blend.sliding_window_positions(slide.shape, 64, 0.0)
+        np.testing.assert_array_equal(r.positions, positions)
+        assert r.is_good.dtype == bool and r.gate_prob.dtype == np.float32
+        assert r.is_good.shape == r.gate_prob.shape == (r.n_tiles,) == (len(positions),)
+        assert int(r.is_good.sum()) == r.n_good
+        assert int((r.is_good & (r.gate_prob >= pipe.classifier_threshold)).sum()) == \
+            r.n_positive
+        tiles = blend.extract_tiles(torch.from_numpy(slide), positions, 64)
+        assert np.array_equal(r.is_good, qc.classify_tiles_batch(tiles)["is_good"].numpy())
+    assert 0 < r.n_positive < r.n_good < r.n_tiles
+
+
 # ---- the CLI ----------------------------------------------------------------
 
 def _export_script():

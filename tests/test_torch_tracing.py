@@ -463,6 +463,64 @@ def test_the_classifier_tta_predict_records_its_tree():
     no_span_in_session(prof, spans)
 
 
+def mean_gate(state, t):
+    """A stand-in gate: each tile's mean brightness over 255."""
+    return t.to(torch.float32).mean(dim=(1, 2)) / 255
+
+
+def cascade_chunk(shape, seed):
+    """A textured uint8 chunk whose tiles' brightness steps from tile to
+    tile, with one near-white tile (QC: empty) and one flat one (blurry)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = rng.integers(60, 140, (h, w)).astype(np.int32)
+    img += (np.arange(h)[:, None] // SIZE + np.arange(w)[None, :] // SIZE) % 3 * 20
+    img[:SIZE, :SIZE] = 250
+    img[:SIZE, SIZE:2 * SIZE] = 120
+    return img.astype(np.uint8)
+
+
+def test_the_cascade_records_its_spans_and_counts():
+    from adipose_tpu_torch.wsi.pipeline import DualModelWSIPipeline
+
+    pipe = DualModelWSIPipeline(mean_gate, {}, scaled, {}, tile_size=SIZE, batch_size=4,
+                                classifier_threshold=0.45, device="cpu")
+    chunks = [cascade_chunk((3 * SIZE, 4 * SIZE), 0), cascade_chunk((2 * SIZE + 16, 3 * SIZE), 1)]
+    with session():
+        results = pipe.run_many(chunks)
+    rec = tracing.records()
+    spans = rec["spans"]
+    check_records(spans)
+    n_tiles = sum(r.n_tiles for r in results)
+    n_good = sum(r.n_good for r in results)
+    n_positive = sum(r.n_positive for r in results)
+    rejected = sum(int((~r.is_good).sum()) for r in results)
+    batches = sum(-(-r.n_positive // 4) for r in results)
+    assert 0 < n_positive < n_good < n_tiles and rejected == n_tiles - n_good == 4
+    stacked = sum(2 * 4 * -(-r.n_tiles // 4) * 4 for r in results)  # (2, padded n) float32
+    stripes = sum(3 * SIZE * c.shape[1] * 2 for c in chunks)  # 3 float16 stripes a chunk
+    c = rec["counters"]
+    assert c == {"h2d_bytes": sum(x.nbytes for x in chunks), "d2h_bytes": stacked + stripes,
+                 "cascade.tiles": n_tiles, "cascade.good_tiles": n_good,
+                 "cascade.positive_tiles": n_positive, "cascade.segment_slots": 4 * batches,
+                 "cascade.canvas_builds": 2}
+    assert c["cascade.segment_slots"] >= c["cascade.positive_tiles"]
+    names = [s["name"] for s in spans]
+    for name in ("cascade.gate", "cascade.gate_wait", "cascade.segment", "cascade.finish",
+                 "entry.h2d"):
+        assert names.count(name) == 2, name
+    # the canvases, the stripes with no positive tile above them, and each batch
+    assert names.count("cascade.blend") == 2 * 2 + batches
+    ids = {s["id"]: s["name"] for s in spans}
+    assert {ids[s["parent"]] for s in spans if s["name"] == "cascade.blend"
+            and s["parent"] is not None} == {"cascade.segment"}
+    tracing.clear()
+    again = pipe.run_many(chunks)
+    assert tracing.records() == {"spans": [], "counters": {}, "dropped": 0}
+    for a, b in zip(again, results):
+        np.testing.assert_array_equal(a.probability_map, b.probability_map)
+
+
 def test_export_is_the_same_graph_under_a_profiler(run, tmp_path):
     """No span sits inside a module's forward: the exported program is the
     same with a session recording, and exporting records no span."""
